@@ -1,0 +1,119 @@
+"""Render configuration.
+
+Analog of the reference's ``Args`` struct (``raytracer/src/lib.rs:19-37``;
+CLI defaults at ``native-runner/src/main.rs:20-31``): same five knobs with
+the same defaults, plus device-side controls (sample batching, kernel
+backend, sharding mode) that have no reference counterpart. The fields and
+defaults are those of ``myraytracer_tpu.config``, so a configuration means
+the same render in both packages. The port's renderers refuse ``nee``,
+``qmc`` and ``rr`` (``NotImplementedError``) until they are ported.
+
+Size inference mirrors ``lib.rs:113-134``: a 0 width or height means
+"derive" — one zero makes the image square from the other dimension; both
+zero fall back to a default headless size (there is no window to follow on
+a headless accelerator host).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Tuple, Union
+
+DEFAULT_WIDTH = 640
+DEFAULT_HEIGHT = 360
+
+
+@dataclasses.dataclass(frozen=True)
+class RenderConfig:
+    width: int = 0
+    height: int = 0
+    samples_per_frame: int = 1
+    ray_depth: int = 50
+    max_framebuffer_weight: float = 1.0
+
+    # Device-side knobs (no reference counterpart).
+    seed: int = 0
+    t_min: float = 1e-3  # shader.wgsl:340
+    t_max: float = 1e4  # shader.wgsl:340
+    # Output transfer: a float exponent (2.0 = RTiOW's sqrt) or "srgb"
+    # (piecewise sRGB encode, the inverse EOTF — what the reference's sRGB
+    # surface format applies, lib.rs:1105-1107). Display-only: never part
+    # of the sample stream.
+    gamma: Union[float, str] = 2.0
+    sample_batch: int = 0  # samples traced per vectorized pass; 0 = auto
+    backend: str = "auto"  # "cuda" | "torch" | "auto"
+    shard: str = "none"  # "none" | "tiles" | "samples"
+    # Progressive frames rendered per device call (0 = auto). K > 1
+    # batches K frames into one kernel invocation with per-frame outputs,
+    # bitwise identical to K separate frames. The port's renderers take
+    # K = 1 only until the CUDA kernel gains multi-frame buckets.
+    frame_batch: int = 0
+    # Total frames the caller intends to render (0 = unbounded). Only a
+    # hint: auto frame batching must not batch past the requested count
+    # (e.g. --frames 2 at spp 1 would otherwise run a 64-frame window).
+    max_frames: int = 0
+    # Next-event estimation (direct light sampling): one shadow ray per
+    # diffuse bounce toward a sampled light (render/lights.py). Unbiased;
+    # a different sample stream than the default estimator (so it is part
+    # of checkpoint provenance). No-op on scenes without DiffuseLight.
+    nee: bool = False
+    # Russian-roulette path termination (extension): 0 = off; N > 0 kills
+    # paths probabilistically before tracing bounce N and beyond, with
+    # survival p = clamp(max(throughput), 0.05, 0.95) and 1/p compensation —
+    # unbiased, and it cuts the long-tail glass chains that otherwise run
+    # to full ray_depth and gate the kernel's tile tails. A different
+    # sample estimator (checkpoint provenance, like nee/qmc); the decision
+    # stream rides a derived key so the main draws are unchanged.
+    rr: int = 0
+    # Low-discrepancy camera sampling: the sub-pixel jitter and lens-disk
+    # dimension pairs come from a per-pixel Owen-scrambled Sobol (0,2)
+    # sequence instead of threefry (core/rng.py) — better convergence per
+    # sample on smooth integrands, still deterministic and backend/shard
+    # invariant. A different sample stream than the default estimator
+    # (checkpoint provenance, like nee).
+    qmc: bool = False
+
+    def resolve_size(self) -> Tuple[int, int]:
+        """Apply the reference's 0-means-derive rule (lib.rs:113-134)."""
+        w, h = self.width, self.height
+        if w == 0 and h == 0:
+            return DEFAULT_WIDTH, DEFAULT_HEIGHT
+        if w == 0:
+            return h, h
+        if h == 0:
+            return w, w
+        return w, h
+
+    def resolve_sample_batch(self) -> int:
+        """Samples traced in one vectorized pass.
+
+        Auto mode bounds live wavefront state to roughly 4M lanes' worth of
+        work split sensibly: small frames vectorize many samples at once,
+        large frames trace one sample per pass.
+        """
+        if self.sample_batch > 0:
+            return min(self.sample_batch, max(1, self.samples_per_frame))
+        w, h = self.resolve_size()
+        lanes_budget = 4 << 20  # ~4M lanes ≈ 260MB of wavefront state
+        per_pass = max(1, lanes_budget // max(1, w * h))
+        return max(1, min(per_pass, self.samples_per_frame))
+
+    def resolve_frame_batch(self, backend: str) -> int:
+        """Frames per device call. Auto (0) is one frame on every backend:
+        multi-frame buckets (several progressive frames per kernel launch)
+        are not in the CUDA kernel yet, so nothing gains from batching."""
+        del backend
+        if self.frame_batch > 0:
+            return self.frame_batch
+        return 1
+
+    def resolve_adaptive_windows(self, backend: str = "cuda") -> int:
+        """Sub-windows per adaptive round. Explicit ``frame_batch`` wins;
+        auto is 1 until the CUDA kernel renders multi-frame buckets."""
+        del backend
+        if self.frame_batch > 0:
+            return self.frame_batch
+        return 1
+
+    def replace(self, **kw) -> "RenderConfig":
+        return dataclasses.replace(self, **kw)

@@ -1,0 +1,144 @@
+"""Counter-based RNG: threefry2x32 keyed on (pixel, sample, bounce).
+
+Port of ``myraytracer_tpu.core.rng``. Every random draw is the pure
+function ``threefry2x32(key, (lane_id, draw_id))``, so a frame is
+bit-reproducible for a key whatever the batching or the device, and the
+plain PyTorch integrator, the CUDA kernel (``csrc/trace.cu``) and the JAX
+package all read the same stream. The seed is the threefry key; no
+``torch.Generator`` is involved.
+
+uint32 words are carried in int64 tensors (or Python ints, for keys and
+scalars): torch has few uint32 ops, so every add, shift and multiply is
+done in int64 and masked back to 32 bits with ``M32``. The functions accept
+either form and broadcast like the JAX ones.
+
+Sampling of the unit sphere / ball / disk is analytic and branch-free, as
+in the JAX package; ``_cbrt01`` keeps its exp2/log2 form so the stream of
+ball samples is the same expression tree.
+"""
+
+from __future__ import annotations
+
+from typing import Tuple
+
+import torch
+
+from myraytracer_tpu_torch.core.vec import V3
+
+M32 = 0xFFFFFFFF
+TAU = 6.283185307179586
+
+# Draw-slot layout inside one (pixel, sample) stream (core/rng.py of the JAX
+# package): ``draw_id = sample_id * DRAWS_PER_SAMPLE + slot``; slots 0-1
+# are camera draws, and bounce ``i`` owns the DRAWS_PER_BOUNCE slots from
+# ``CAMERA_DRAWS + i * DRAWS_PER_BOUNCE``. Bounces past MAX_DEPTH reuse the
+# slot window of their page under a derived key (:func:`depth_page_key`).
+DRAWS_PER_BOUNCE = 4
+CAMERA_DRAWS = 2
+MAX_DEPTH = 62  # bounces per draw page (page 0 = the legacy layout)
+BOUNCES_PER_PAGE = MAX_DEPTH + 1
+DRAWS_PER_SAMPLE = CAMERA_DRAWS + DRAWS_PER_BOUNCE * BOUNCES_PER_PAGE  # 254
+
+_ROTATIONS = (13, 15, 26, 6, 17, 29, 16, 24)
+
+# Fold constants of the derived keys (the JAX package's values).
+RR_KEY_FOLD = 0x52524F55  # "RROU"
+DEPTH_PAGE_FOLD = 0x44455054  # "DEPT"
+# Reserved top draw words of the QMC scrambles; the session's cursor guard
+# keeps real draw ids below them.
+QMC_SCRAMBLE_SLOTS = 2
+
+
+def _rotl32(x, r: int):
+    return ((x << r) & M32) | (x >> (32 - r))
+
+
+def threefry2x32(key, ctr):
+    """Threefry-2x32, 20 rounds (Salmon et al., Random123).
+
+    ``key`` and ``ctr`` are pairs of u32 values: Python ints or int64
+    tensors holding values in [0, 2^32), broadcastable against each other.
+    Returns two u32 values of the broadcast form. Matches the Random123
+    known-answer vectors and the JAX package bit for bit.
+    """
+    k0 = key[0] & M32
+    k1 = key[1] & M32
+    ks = (k0, k1, k0 ^ k1 ^ 0x1BD11BDA)
+
+    x0 = (ctr[0] + ks[0]) & M32
+    x1 = (ctr[1] + ks[1]) & M32
+
+    for r in range(20):
+        x0 = (x0 + x1) & M32
+        x1 = _rotl32(x1, _ROTATIONS[r % 8])
+        x1 = x1 ^ x0
+        if (r + 1) % 4 == 0:
+            j = (r + 1) // 4  # 1..5
+            x0 = (x0 + ks[j % 3]) & M32
+            x1 = (x1 + ks[(j + 1) % 3] + j) & M32
+    return x0, x1
+
+
+def key_from_seed(seed: int) -> Tuple[int, int]:
+    """Split a Python int seed into a (u32, u32) key pair."""
+    seed = int(seed) & 0xFFFFFFFFFFFFFFFF
+    return (seed >> 32) & M32, seed & M32
+
+
+def fold_key(key, data: int):
+    """Derive a new key by hashing ``data`` under ``key`` (like fold_in)."""
+    return threefry2x32(key, (int(data) & M32, 0x9E3779B9))
+
+
+def depth_page_key(key, page):
+    """Key for draw page ``page`` (a u32 int or an int64 tensor).
+
+    Page 0 IS the main key, so the stream for bounces 0..MAX_DEPTH is the
+    single-page one; page p >= 1 derives an independent key.
+    """
+    fk0, fk1 = threefry2x32(key, ((page + DEPTH_PAGE_FOLD) & M32, 0x9E3779B9))
+    if not isinstance(page, torch.Tensor):
+        return (key[0], key[1]) if page & M32 == 0 else (fk0, fk1)
+    is_main = (page & M32) == 0
+    k0 = torch.as_tensor(key[0], dtype=torch.int64, device=page.device)
+    k1 = torch.as_tensor(key[1], dtype=torch.int64, device=page.device)
+    return torch.where(is_main, k0, fk0), torch.where(is_main, k1, fk1)
+
+
+def _to_unit_f32(bits: torch.Tensor) -> torch.Tensor:
+    """u32 bits → float32 uniform in [0, 1) from the top 24 bits (exact)."""
+    hi24 = (bits >> 8).to(torch.int32)
+    return hi24.to(torch.float32) * (1.0 / (1 << 24))
+
+
+def uniform2(key, lane_id: torch.Tensor, draw_id) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Two independent U[0,1) floats per lane for the given draw slot."""
+    b0, b1 = threefry2x32(key, (lane_id, draw_id & M32))
+    return _to_unit_f32(b0), _to_unit_f32(b1)
+
+
+def unit_sphere_from_uniforms(u1: torch.Tensor, u2: torch.Tensor) -> V3:
+    """Uniform direction on the unit sphere from two U[0,1) draws."""
+    z = 1.0 - 2.0 * u1
+    r = torch.sqrt(torch.clamp_min(1.0 - z * z, 0.0))
+    phi = u2 * TAU
+    return V3(r * torch.cos(phi), r * torch.sin(phi), z)
+
+
+def _cbrt01(u: torch.Tensor) -> torch.Tensor:
+    """Cube root on [0,1] via exp2/log2 (the JAX package's form)."""
+    r = torch.exp2(torch.log2(torch.clamp_min(u, 1e-38)) * (1.0 / 3.0))
+    return torch.where(u <= 0.0, torch.zeros_like(r), r)
+
+
+def unit_ball_from_uniforms(u1: torch.Tensor, u2: torch.Tensor, u3: torch.Tensor) -> V3:
+    """Uniform point inside the unit ball from three U[0,1) draws."""
+    s = unit_sphere_from_uniforms(u1, u2)
+    return s * _cbrt01(u3)
+
+
+def unit_disk_from_uniforms(u1: torch.Tensor, u2: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Uniform point inside the unit disk (for thin-lens defocus)."""
+    r = torch.sqrt(u1)
+    phi = u2 * TAU
+    return r * torch.cos(phi), r * torch.sin(phi)

@@ -1,0 +1,311 @@
+"""The wavefront integrator in plain PyTorch: the port's oracle.
+
+Port of ``myraytracer_tpu.render.integrator`` for the slice the CUDA
+kernel covers (spheres; Lambertian, Metal, Dielectric; gradient or
+constant sky; threefry camera draws). It is the plain version of the
+kernel in ``kernels/trace.py``: the kernel runs it for CPU tensors, and
+``chip_smoke.py`` holds the kernel against it on the card.
+
+The reference's per-pixel bounce loop (``shader.wgsl:336-358``) becomes a
+loop over bounces on a batch of lanes:
+
+* miss lanes add ``throughput * sky`` and retire (shader.wgsl:343-345);
+* absorbed lanes retire black (shader.wgsl:349-350);
+* depth exhaustion leaves the radiance untouched = black (shader.wgsl:357);
+* throughput multiplies the attenuation and the next direction is
+  normalized (shader.wgsl:353-354).
+
+Each bounce works only on the lanes still alive (the JAX oracle masks
+dead lanes instead); per lane the arithmetic is the same, so the result
+is too.
+
+Every random draw is ``threefry(key, (pixel_lane, sample*254 + slot))``,
+so the result is independent of batching: ``make_block_renderer`` renders
+any row window for any sample window.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import torch
+
+from myraytracer_tpu_torch.core import rng as crng
+from myraytracer_tpu_torch.core.vec import V3
+from myraytracer_tpu_torch.render import camera as cam_mod
+from myraytracer_tpu_torch.render.hit import closest_hit
+from myraytracer_tpu_torch.render.materials import color_sky, scatter
+from myraytracer_tpu_torch.scene import api
+from myraytracer_tpu_torch.scene.api import Camera
+from myraytracer_tpu_torch.scene.compile import CompiledScene
+
+M32 = crng.M32
+SUPPORTED_MATERIALS = frozenset(
+    (api.MATERIAL_LAMBERTIAN, api.MATERIAL_METAL, api.MATERIAL_DIELECTRIC)
+)
+
+
+def check_supported(
+    material_set=None, frames: int = 1, nee_lights=None, texture_set=None,
+    qmc: bool = False, rr: int = 0,
+) -> None:
+    """Raise ``NotImplementedError`` for what the port does not render yet.
+
+    Shared by the plain integrator and the CUDA kernel, which cover the
+    same slice of the JAX package's integrator.
+    """
+    absent = []
+    if nee_lights:
+        absent.append("next-event estimation (nee)")
+    if qmc:
+        absent.append("QMC camera sampling (qmc)")
+    if rr:
+        absent.append("Russian roulette (rr)")
+    if texture_set:
+        absent.append("textures")
+    if material_set is not None and not set(material_set) <= SUPPORTED_MATERIALS:
+        absent.append("emissive materials (DiffuseLight)")
+    if int(frames) != 1:
+        absent.append("multi-frame buckets (frames > 1)")
+    if absent:
+        raise NotImplementedError(
+            "the PyTorch port does not support " + ", ".join(absent) + " yet"
+        )
+
+
+def _sky_color(d: V3, sky) -> V3:
+    if sky is None:
+        return color_sky(d.y)
+    zs = torch.zeros_like(d.y)
+    return V3(zs + float(sky[0]), zs + float(sky[1]), zs + float(sky[2]))
+
+
+def trace(
+    o: V3,
+    d: V3,
+    lane_id: torch.Tensor,
+    sample_id: torch.Tensor,
+    key,
+    scene: CompiledScene,
+    depth: int,
+    t_min: float,
+    t_max: float,
+    sky=None,
+) -> Tuple[V3, torch.Tensor]:
+    """Trace normalized rays (1-D lanes) to completion.
+
+    ``lane_id`` and ``sample_id`` are int64 tensors of u32 values. Returns
+    (radiance V3, segments int32) where ``segments`` counts the bounces in
+    which each lane's path was alive. ``sky`` is an optional constant
+    background color (``World.ambient``); ``None`` keeps the gradient.
+    Depths past ``MAX_DEPTH`` draw their bounces from paged keys
+    (``crng.depth_page_key``), as the JAX oracle does.
+    """
+    n = o.x.shape[0]
+    dev = o.x.device
+    rad = V3.zeros((n,), dev)
+    segs = torch.zeros((n,), dtype=torch.int32, device=dev)
+    # State of the lanes still alive; ``live`` maps them to their lanes.
+    live = torch.arange(n, device=dev)
+    atten = V3.ones((n,), dev)
+    lane = lane_id
+    draw_base = (sample_id * crng.DRAWS_PER_SAMPLE + crng.CAMERA_DRAWS) & M32
+    for i in range(int(depth)):
+        if live.numel() == 0:
+            break
+        segs[live] += 1
+        hit = closest_hit(o, d, scene, t_min, t_max)
+
+        # Miss → attenuation * sky, retire (shader.wgsl:343-345). A lane
+        # gathers radiance at most once, so the oracle's ``0 + x`` is ``x``.
+        miss = ~hit.mask
+        if bool(miss.any()):
+            skyv = _sky_color(d.index(miss), sky)
+            contrib = atten.index(miss) * skyv
+            gone = live[miss]
+            rad.x[gone] = contrib.x
+            rad.y[gone] = contrib.y
+            rad.z[gone] = contrib.z
+        keep = hit.mask
+        live, lane, draw_base = live[keep], lane[keep], draw_base[keep]
+        d, atten = d.index(keep), atten.index(keep)
+        hit = _select_lanes(hit, keep)
+
+        # Scatter draws: slot 0 = unit sphere; slots 1-2 = unit ball; slot
+        # 2's second word = the dielectric reflect draw.
+        page, local = divmod(i, crng.BOUNCES_PER_PAGE)
+        bkey = crng.depth_page_key(key, page)
+        draw = (draw_base + local * crng.DRAWS_PER_BOUNCE) & M32
+        us1, us2 = crng.uniform2(bkey, lane, draw)
+        ub1, ub2 = crng.uniform2(bkey, lane, draw + 1)
+        ub3, ud = crng.uniform2(bkey, lane, draw + 2)
+        sphere_sample = crng.unit_sphere_from_uniforms(us1, us2)
+        ball_sample = crng.unit_ball_from_uniforms(ub1, ub2, ub3)
+
+        sc = scatter(d, hit, sphere_sample, ball_sample, ud)
+        ok = sc.ok  # absorbed → retire black (shader.wgsl:349-350)
+        live, lane, draw_base = live[ok], lane[ok], draw_base[ok]
+        atten = atten.index(ok) * sc.attenuation.index(ok)
+        o = hit.point.index(ok)
+        d = sc.direction.index(ok).normalize()  # shader.wgsl:354
+    return rad, segs
+
+
+def _select_lanes(hit, idx):
+    """The hit record of the selected lanes."""
+    return type(hit)(*(
+        f.index(idx) if isinstance(f, V3) else f[idx] for f in hit
+    ))
+
+
+def render_sample_batch(
+    scene: CompiledScene,
+    ray_gen,
+    ix: torch.Tensor,
+    iy: torch.Tensor,
+    lane_id: torch.Tensor,
+    sample_id: torch.Tensor,
+    key,
+    depth: int,
+    t_min: float,
+    t_max: float,
+    sky=None,
+    lens_draws: bool = True,
+) -> Tuple[V3, torch.Tensor]:
+    """Camera-generate and trace one batch of (pixel, sample) lanes.
+
+    Camera draw slots: 0 = sub-pixel jitter, 1 = lens disk. Slots are
+    absolute, so a camera without a lens (reference mode) skips slot 1
+    and nothing else in the stream moves.
+    """
+    cam_draw = (sample_id * crng.DRAWS_PER_SAMPLE) & M32
+    u1, u2 = crng.uniform2(key, lane_id, cam_draw)
+    if lens_draws:
+        l1, l2 = crng.uniform2(key, lane_id, cam_draw + 1)
+    else:
+        l1 = l2 = torch.zeros_like(u1)
+    o, d = ray_gen(ix, iy, u1, u2, l1, l2)
+    return trace(o, d, lane_id, sample_id, key, scene, depth, t_min, t_max, sky=sky)
+
+
+def ray_generator(cam: Camera, width: int, height: int,
+                  packed: Optional[torch.Tensor]):
+    """The ray generator a block uses: the packed runtime camera when the
+    scene carries one (general mode only — the reference camera is fixed by
+    definition), else the construction camera."""
+    if packed is not None and not cam.reference_mode:
+        return lambda ix, iy, u1, u2, l1, l2: cam_mod.rays_from_packed(  # noqa: E731
+            packed, width, height, ix, iy, u1, u2, l1, l2
+        )
+    return cam_mod.make_ray_generator(cam, width, height)
+
+
+def make_block_renderer(
+    cam: Camera,
+    width: int,
+    height: int,
+    n_rows: int,
+    max_samples: int,
+    ray_depth: int,
+    t_min: float = 1e-3,
+    t_max: float = 1e4,
+    sample_batch: int = 1,
+    material_set=None,
+    sky=None,
+    nee_lights=None,
+    texture_set=None,
+    qmc: bool = False,
+    rr: int = 0,
+):
+    """Build the composable rendering primitive.
+
+    Returns ``block(scene, key, row0, sample_start, n_valid) ->
+    (radiance_sum [n_rows, width, 3] f32, segments [n_rows, width] f32)``:
+    the SUM of radiance over sample indices ``[sample_start, sample_start +
+    n_valid)`` (``n_valid <= max_samples``) for image rows ``[row0, row0 +
+    n_rows)``, channels last, and each pixel's traced-segment count. The
+    caller divides by the sample count. Samples are added to a pixel's sum
+    one at a time in sample order, as the CUDA kernel adds them.
+    """
+    check_supported(material_set, 1, nee_lights, texture_set, qmc, rr)
+    b = max(1, min(int(sample_batch), int(max_samples)))
+    n_pixels = n_rows * width
+
+    def block(scene: CompiledScene, key, row0, sample_start, n_valid):
+        dev = scene.device
+        ray_gen = ray_generator(cam, width, height, scene.cam)
+        pix = torch.arange(n_pixels, dtype=torch.int64, device=dev)
+        ix = pix % width
+        iy = pix // width + int(row0)
+        lane_id = (iy * width + ix) & M32
+        acc = V3.zeros((n_pixels,), dev)
+        segs = torch.zeros((n_pixels,), dtype=torch.int32, device=dev)
+        n_valid = int(n_valid)
+        if n_valid > max_samples:
+            raise ValueError(f"n_valid {n_valid} > max_samples {max_samples}")
+        for j0 in range(0, n_valid, b):
+            k = min(b, n_valid - j0)
+            rows = torch.arange(k, dtype=torch.int64, device=dev)[:, None]
+            sample_id = ((int(sample_start) + j0 + rows) & M32).expand(k, n_pixels)
+            rad, sg = render_sample_batch(
+                scene, ray_gen,
+                ix.expand(k, n_pixels).reshape(-1),
+                iy.expand(k, n_pixels).reshape(-1),
+                lane_id.expand(k, n_pixels).reshape(-1),
+                sample_id.reshape(-1),
+                key, ray_depth, t_min, t_max, sky=sky,
+                lens_draws=not cam.reference_mode,
+            )
+            rad = V3(*(c.view(k, n_pixels) for c in rad))
+            for r in range(k):
+                acc = acc + V3(rad.x[r], rad.y[r], rad.z[r])
+            segs = segs + sg.view(k, n_pixels).sum(dim=0, dtype=torch.int32)
+        img_sum = acc.stacked(-1).view(n_rows, width, 3)
+        return img_sum, segs.to(torch.float32).view(n_rows, width)
+
+    return block
+
+
+def make_renderer(
+    cam: Camera,
+    width: int,
+    height: int,
+    samples_per_frame: int,
+    ray_depth: int,
+    t_min: float = 1e-3,
+    t_max: float = 1e4,
+    sample_batch: int = 1,
+    material_set=None,
+    frames: int = 1,
+    sky=None,
+    nee_lights=None,
+    texture_set=None,
+    qmc: bool = False,
+    rr: int = 0,
+):
+    """Build a single-device frame renderer on the plain integrator.
+
+    Returns ``render(scene, key, sample_base) -> (image [H,W,3] f32,
+    segments f64 scalar)``: the mean radiance over ``samples_per_frame``
+    samples from global sample index ``sample_base``, and the number of
+    ray segments traced. The analog of one ``State::redraw`` trace pass
+    (``lib.rs:241-307``) without the accumulation blend.
+    """
+    check_supported(material_set, frames, nee_lights, texture_set, qmc, rr)
+    spp = int(samples_per_frame)
+    block = make_block_renderer(
+        cam, width, height, height, spp, ray_depth, t_min=t_min, t_max=t_max,
+        sample_batch=sample_batch, material_set=material_set, sky=sky,
+    )
+    return frame_renderer(block, spp)
+
+
+def frame_renderer(block, spp: int):
+    """``render(scene, key, sample_base)`` over a full-image ``block``:
+    the sum divided by ``spp`` and the segment total in float64."""
+
+    def render(scene: CompiledScene, key, sample_base):
+        img_sum, segs = block(scene, key, 0, int(sample_base), spp)
+        return img_sum * (1.0 / spp), segs.sum(dtype=torch.float64)
+
+    return render

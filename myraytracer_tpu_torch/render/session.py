@@ -1,0 +1,357 @@
+"""Progressive render session.
+
+Port of ``myraytracer_tpu.render.session``: owns the accumulation
+framebuffer and drives frame steps. Accumulation reproduces the
+reference's ``State::redraw`` blend (``lib.rs:299-306``,
+``shader.wgsl:385``):
+
+    fb' = mix(frame_mean, fb, w)   with   w = min(max_weight, n / (n + 1))
+
+where ``n`` counts completed frames and the first weight is 0
+(``lib.rs:424``): with ``max_weight = 1`` the framebuffer is the exact
+running mean over frames.
+
+Sessions checkpoint: ``(framebuffer, frame_count, sample_cursor, seed)``
+round-trips through an npz in the JAX package's format (version 3), and a
+resumed session continues the identical sample stream (counter-based RNG).
+The backend that produced the stream (``torch`` or ``cuda``) is part of
+the checkpoint, and a resume on the other one is refused.
+"""
+
+from __future__ import annotations
+
+import hashlib
+import json
+import pathlib
+
+import numpy as np
+import torch
+
+from myraytracer_tpu_torch.config import RenderConfig
+from myraytracer_tpu_torch.core import rng as crng
+from myraytracer_tpu_torch.render.camera import pack_camera
+from myraytracer_tpu_torch.render.integrator import make_renderer
+from myraytracer_tpu_torch.scene import api
+from myraytracer_tpu_torch.scene.compile import compile_scene
+
+CHECKPOINT_VERSION = 3
+
+# Spheres above which the compiler sorts the scene spatially, as the JAX
+# session does; the order decides equal-t ties, so it must match.
+SPATIAL_SORT_MIN = 64
+
+
+def _blend_chain(fb_hwc: torch.Tensor, imgs_kchw: torch.Tensor,
+                 weights: torch.Tensor) -> torch.Tensor:
+    """Blend K per-frame images ([K,3,H,W]) into the framebuffer ([H,W,3])
+    in turn, with per-frame f32 weights: ``img*(1-w) + fb*w``.
+
+    XLA compiles the JAX package's blend with the ``fb*w`` product fused
+    into the add (one rounding), so this does the same: the f32 product is
+    exact in f64, and the f64 sum is rounded to f32 once. The result is
+    bitwise the JAX blend's, on every device.
+    """
+    fb = fb_hwc.permute(2, 0, 1)
+    for img, w in zip(imgs_kchw, weights):
+        rest = img * (1.0 - w)
+        fb = (fb.double() * w.double() + rest.double()).float()
+    return fb.permute(1, 2, 0).contiguous()
+
+
+def scene_fingerprint(scene) -> str:
+    """Content hash of the compiled scene's tensors (not the camera).
+
+    Hashes the same leaves in the same order, dtype and shape as the JAX
+    package's ``scene_fingerprint``, so one world gives one fingerprint in
+    both packages.
+    """
+    h = hashlib.sha256()
+    leaves = [
+        scene.center.x, scene.center.y, scene.center.z, scene.radius,
+        scene.radius_sq, scene.albedo.x, scene.albedo.y, scene.albedo.z,
+        scene.fuzz, scene.ior, scene.mat_ty,
+    ]
+    for leaf in leaves:
+        arr = leaf.detach().cpu().numpy()
+        h.update(str(arr.dtype).encode())
+        h.update(str(arr.shape).encode())
+        h.update(arr.tobytes())
+    return h.hexdigest()[:16]
+
+
+def resolve_device_backend(backend: str) -> str:
+    """``auto`` → ``cuda`` when a GPU is present, else ``torch``."""
+    if backend == "auto":
+        return "cuda" if torch.cuda.is_available() else "torch"
+    if backend not in ("cuda", "torch"):
+        raise ValueError(f"unknown backend {backend!r}: use auto|cuda|torch")
+    return backend
+
+
+class RenderSession:
+    """Progressive accumulation over frames of ``samples_per_frame`` samples.
+
+    ``renderer_factory`` builds the frame renderer (``make_renderer`` of
+    ``render.integrator`` or ``kernels.trace``); by default the plain
+    integrator on the CPU, recorded as backend ``torch``. With a factory,
+    the config's backend names the path (``auto`` resolves like
+    ``dispatch.resolve_backend``) and ``cuda`` places the session on the GPU.
+    """
+
+    def __init__(
+        self,
+        world: api.World,
+        config: RenderConfig = RenderConfig(),
+        renderer_factory=None,
+    ):
+        self.world = world
+        self.config = config
+        self.width, self.height = config.resolve_size()
+        if renderer_factory is None:
+            # The default factory IS the plain integrator: recording another
+            # backend would let a later resume mix two streams.
+            resolved = "torch"
+        else:
+            resolved = resolve_device_backend(config.backend)
+        self.backend_resolved = resolved
+        self.device = torch.device("cuda" if resolved == "cuda" else "cpu")
+        self.scene = compile_scene(
+            world, spatial_sort=len(world.spheres) > SPATIAL_SORT_MIN,
+            device=self.device,
+        )
+        if not world.camera.reference_mode:
+            # The packed runtime camera: set_camera swaps it, and the
+            # renderer reads it each frame.
+            self.scene = self.scene._replace(cam=torch.from_numpy(
+                pack_camera(world.camera, self.width, self.height)
+            ).to(self.device))
+        self.key = crng.key_from_seed(config.seed)
+
+        factory = renderer_factory or make_renderer
+        self.frame_batch = config.resolve_frame_batch(resolved)
+        self._render = factory(
+            world.camera,
+            self.width,
+            self.height,
+            config.samples_per_frame,
+            config.ray_depth,
+            t_min=config.t_min,
+            t_max=config.t_max,
+            sample_batch=config.resolve_sample_batch(),
+            material_set=world.material_set or None,
+            frames=self.frame_batch,
+            sky=world.ambient,
+            # A truthy marker: the port extracts no lights yet, and the
+            # factories refuse nee until they do.
+            nee_lights=config.nee or None,
+            texture_set=world.texture_set or None,
+            qmc=config.qmc,
+            rr=config.rr,
+        )
+        self.framebuffer = torch.zeros(
+            (self.height, self.width, 3), dtype=torch.float32, device=self.device
+        )
+        self.frame_count = 0  # lib.rs:232 sample_count
+        self.sample_cursor = 0  # global sample index (per pixel)
+        # Per-step segment totals stay on the device until read, so a step
+        # does not wait for the device; they fold into a float64 host total.
+        self._segs_total = 0.0
+        self._segs_pending = []
+        self._fingerprint = None
+
+    @property
+    def segments_traced(self) -> float:
+        """Total ray segments traced (waits for pending device work)."""
+        if self._segs_pending:
+            pending, self._segs_pending = self._segs_pending, []
+            self._segs_total += float(torch.stack(pending).sum().item())
+        return self._segs_total
+
+    @property
+    def accumulated_spp(self) -> int:
+        return self.frame_count * self.config.samples_per_frame
+
+    def step(self) -> torch.Tensor:
+        """Render one step of ``frame_batch`` frames and blend it in; returns
+        the new framebuffer."""
+        next_cursor = (
+            self.sample_cursor
+            + self.config.samples_per_frame * self.frame_batch
+        )
+        # QMC reserves the top two draw words for its per-pixel scrambles.
+        cap = crng.M32 - (crng.QMC_SCRAMBLE_SLOTS if self.config.qmc else 0)
+        if next_cursor * crng.DRAWS_PER_SAMPLE > cap:
+            # The draw index is sample_id * DRAWS_PER_SAMPLE + slot in
+            # uint32: past ~16.9M samples/pixel it would wrap and silently
+            # reuse the earliest samples' draws.
+            raise RuntimeError(
+                f"sample cursor {next_cursor} would overflow the uint32 "
+                f"draw-index space ({crng.M32 // crng.DRAWS_PER_SAMPLE} "
+                f"samples/pixel max): the RNG stream would alias"
+            )
+        img, segs = self._render(self.scene, self.key, self.sample_cursor)
+        # Weights from the count of previously completed frames (0 for the
+        # first frame, lib.rs:424), in f32 as the JAX session passes them.
+        cap = self.config.max_framebuffer_weight
+        ws = torch.tensor(
+            [
+                min(cap, n / (n + 1)) if n else 0.0
+                for n in range(
+                    self.frame_count, self.frame_count + self.frame_batch
+                )
+            ],
+            dtype=torch.float32,
+            device=self.device,
+        )
+        self.framebuffer = _blend_chain(
+            self.framebuffer, img.permute(2, 0, 1)[None], ws
+        )
+        self.frame_count += self.frame_batch
+        self.sample_cursor += self.config.samples_per_frame * self.frame_batch
+        self._segs_pending.append(segs)
+        return self.framebuffer
+
+    def run(self, frames: int) -> torch.Tensor:
+        """Run at least ``frames`` progressive frames; ``frames <= 0`` is a
+        no-op."""
+        for _ in range(max(0, -(-frames // self.frame_batch))):
+            self.step()
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        return self.framebuffer
+
+    def set_camera(self, cam: api.Camera) -> None:
+        """Move the camera: repack the runtime camera operand and reset the
+        accumulation (the sample stream continues from the cursor)."""
+        if cam.reference_mode or self.world.camera.reference_mode:
+            raise ValueError(
+                "the reference-mode camera is fixed by contract; "
+                "use a general (lookfrom/lookat) camera scene to move"
+            )
+        self.scene = self.scene._replace(cam=torch.from_numpy(
+            pack_camera(cam, self.width, self.height)
+        ).to(self.device))
+        self.framebuffer = torch.zeros_like(self.framebuffer)
+        self.frame_count = 0
+
+    # -- checkpoint / resume --------------------------------------------------
+
+    @property
+    def scene_fingerprint(self) -> str:
+        """Content hash of the compiled scene (cached; excludes camera)."""
+        if self._fingerprint is None:
+            fp = scene_fingerprint(self.scene)
+            if self.world.ambient is not None:
+                # The background color changes the image but lives outside
+                # the compiled tensors: fold it into the provenance hash.
+                h = hashlib.sha256(fp.encode())
+                h.update(repr(self.world.ambient).encode())
+                fp = h.hexdigest()[:16]
+            self._fingerprint = fp
+        return self._fingerprint
+
+    def save_checkpoint(self, path) -> None:
+        """Save accumulation state to ``path`` (npz)."""
+        meta = {
+            "version": CHECKPOINT_VERSION,
+            "width": self.width,
+            "height": self.height,
+            "samples_per_frame": self.config.samples_per_frame,
+            "ray_depth": self.config.ray_depth,
+            "max_framebuffer_weight": self.config.max_framebuffer_weight,
+            "seed": self.config.seed,
+            "t_min": self.config.t_min,
+            "t_max": self.config.t_max,
+            "nee": self.config.nee,
+            "nee_estimator": "mis" if self.config.nee else None,
+            "qmc": self.config.qmc,
+            "rr": self.config.rr,
+            # Exact-continuation provenance: the scene content, the compute
+            # path that produced the stream, and the sharding mode.
+            "scene": self.scene_fingerprint,
+            "backend": self.backend_resolved,
+            "shard": self.config.shard,
+        }
+        arrays = dict(
+            framebuffer=self.framebuffer.cpu().numpy(),
+            frame_count=np.int64(self.frame_count),
+            sample_cursor=np.int64(self.sample_cursor),
+            segments_traced=np.float64(self.segments_traced),
+            meta=json.dumps(meta),
+        )
+        if self.scene.cam is not None:
+            # The runtime camera is part of the accumulation state.
+            arrays["camera"] = self.scene.cam.cpu().numpy()
+        np.savez(pathlib.Path(path), **arrays)
+
+    def load_checkpoint(self, path) -> None:
+        with np.load(pathlib.Path(path), allow_pickle=False) as data:
+            self._load(data)
+
+    def _load(self, data) -> None:
+        meta = json.loads(str(data["meta"]))
+        if meta["version"] != CHECKPOINT_VERSION:
+            raise ValueError(f"checkpoint version {meta['version']} unsupported")
+        if meta.get("adaptive"):
+            raise ValueError(
+                "adaptive checkpoint: the PyTorch port has no adaptive session"
+            )
+        for field in (
+            "width", "height", "samples_per_frame", "ray_depth", "seed",
+            "max_framebuffer_weight", "t_min", "t_max", "nee",
+        ):
+            have = getattr(self, field, None)
+            if have is None:
+                have = getattr(self.config, field)
+            if meta[field] != have:
+                raise ValueError(
+                    f"checkpoint {field}={meta[field]} != session {have}"
+                )
+        if int(meta.get("rr", 0)) != self.config.rr:
+            raise ValueError(
+                f"checkpoint rr={meta.get('rr', 0)} != session "
+                f"{self.config.rr}: different termination streams"
+            )
+        if bool(meta.get("qmc", False)) != self.config.qmc:
+            raise ValueError(
+                f"checkpoint qmc={meta.get('qmc', False)} != session "
+                f"{self.config.qmc}: different sample streams"
+            )
+        if meta["scene"] != self.scene_fingerprint:
+            raise ValueError(
+                f"checkpoint scene fingerprint {meta['scene']} != session "
+                f"{self.scene_fingerprint}: refusing to blend frames from "
+                f"a different world"
+            )
+        if meta["backend"] != self.backend_resolved:
+            raise ValueError(
+                f"checkpoint backend={meta['backend']} != session "
+                f"{self.backend_resolved}: streams from two compute paths "
+                f"agree only statistically, so an exact resume must stay on "
+                f"the producing backend"
+            )
+        if meta["shard"] != self.config.shard:
+            raise ValueError(
+                f"checkpoint shard={meta['shard']} != session "
+                f"{self.config.shard}"
+            )
+        if "camera" in data:
+            if self.scene.cam is None:
+                raise ValueError(
+                    "checkpoint carries a runtime camera but this session "
+                    "was built for the fixed reference camera"
+                )
+            self.scene = self.scene._replace(
+                cam=torch.from_numpy(data["camera"]).to(self.device)
+            )
+        elif self.scene.cam is not None:
+            raise ValueError(
+                "checkpoint has no runtime camera (fixed reference view) "
+                "but this session renders a positionable camera"
+            )
+        self.framebuffer = torch.from_numpy(data["framebuffer"]).to(self.device)
+        self.frame_count = int(data["frame_count"])
+        self.sample_cursor = int(data["sample_cursor"])
+        self._segs_total = float(data["segments_traced"])
+        self._segs_pending = []
+

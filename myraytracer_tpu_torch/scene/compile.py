@@ -1,0 +1,252 @@
+"""Scene compiler: API World → SoA tensors (spheres).
+
+Port of the sphere part of ``myraytracer_tpu.scene.compile``. Every
+sphere row carries its own material parameters (albedo, fuzz, ior, type)
+beside its geometry, so one index fetches the whole hit record.
+
+Padding: the sphere tensors are padded to a multiple of ``SPHERE_PAD``
+with ``radius_sq = -1`` slots. For a normalized ray direction,
+Cauchy-Schwarz gives ``b^2 = (oc·d)^2 <= |oc|^2``, so the discriminant
+``b^2 - (|oc|^2 - r^2)`` of a pad slot is ``<= -1``: pad slots never hit.
+
+``spatial_sort`` reorders the spheres exactly as the JAX package does (a
+Morton curve, the ``LEADERS`` largest spheres hoisted to the front, the
+rest in kd-partitioned chunks). The order decides which sphere wins an
+equal-t tie, so the port must build the same order for the same image.
+
+Triangle meshes and textures are not in the port yet: a world with either
+raises ``NotImplementedError``.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, NamedTuple, Optional
+
+import numpy as np
+import torch
+
+from myraytracer_tpu_torch.core.vec import V3
+from myraytracer_tpu_torch.scene import api
+
+# Row-count multiple of the padded sphere tensors (the JAX package's).
+SPHERE_PAD = 8
+
+# Spheres hoisted to the front of the spatially-sorted order (the LEADERS
+# largest by |radius|), as in the JAX package.
+LEADERS = 8
+
+
+class CompiledScene(NamedTuple):
+    """SoA scene tensors; every field is a length-N tensor on one device.
+
+    ``radius`` is signed (negative radius = inward normals, the
+    reference's ``(at - center) / radius`` at shader.wgsl:299);
+    ``radius_sq`` is what the quadratic uses, and is -1 on padding slots.
+    """
+
+    center: V3  # [N] f32 each
+    radius: torch.Tensor  # [N] f32, signed
+    radius_sq: torch.Tensor  # [N] f32, -1 marks padding
+    albedo: V3  # [N] f32 each (Lambertian/Metal albedo; 0 otherwise)
+    fuzz: torch.Tensor  # [N] f32 (Metal fuzz; 0 otherwise)
+    ior: torch.Tensor  # [N] f32 (Dielectric index; 1 otherwise)
+    mat_ty: torch.Tensor  # [N] i32 (0 pad, 1 lambertian, 2 metal, 3 dielectric)
+    # Optional packed runtime camera ([19] f32, render.camera.pack_camera):
+    # when set, a general-mode renderer reads the thin-lens basis from it
+    # instead of its construction-time camera.
+    cam: Optional[torch.Tensor] = None
+
+    @property
+    def padded_size(self) -> int:
+        return self.radius.shape[0]
+
+    @property
+    def device(self) -> torch.device:
+        return self.radius.device
+
+
+# The names of the JAX ``CompiledScene`` leaves a spheres-only scene has,
+# in its pytree order (the order ``scene_fingerprint`` hashes).
+SCENE_LEAVES = (
+    "center.x", "center.y", "center.z", "radius", "radius_sq",
+    "albedo.x", "albedo.y", "albedo.z", "fuzz", "ior", "mat_ty",
+)
+
+
+def _pad(a: np.ndarray, n: int, fill) -> np.ndarray:
+    out = np.full((n,) + a.shape[1:], fill, a.dtype)
+    out[: a.shape[0]] = a
+    return out
+
+
+def _material_row(m: api.Material):
+    """Denormalized (albedo, fuzz, ior, type) for one material."""
+    if isinstance(m, api.Lambertian):
+        return m.albedo, 0.0, 1.0, m.type_id
+    if isinstance(m, api.Metal):
+        return m.albedo, m.fuzz, 1.0, m.type_id
+    if isinstance(m, api.Dielectric):
+        return (0.0, 0.0, 0.0), 0.0, m.ior, m.type_id
+    if isinstance(m, api.DiffuseLight):
+        # Emission rides the albedo columns (lights never scatter).
+        return m.emit, 0.0, 1.0, m.type_id
+    raise TypeError(f"unknown material: {m!r}")
+
+
+def _morton3(q: np.ndarray) -> np.ndarray:
+    """Interleave 10-bit xyz quantized coords into a 30-bit Morton code."""
+
+    def spread(v):
+        v = v.astype(np.uint64)
+        v = (v | (v << 16)) & np.uint64(0x030000FF)
+        v = (v | (v << 8)) & np.uint64(0x0300F00F)
+        v = (v | (v << 4)) & np.uint64(0x030C30C3)
+        v = (v | (v << 2)) & np.uint64(0x09249249)
+        return v
+
+    return spread(q[:, 0]) | (spread(q[:, 1]) << np.uint64(1)) | (
+        spread(q[:, 2]) << np.uint64(2)
+    )
+
+
+def morton_order(centers: np.ndarray) -> np.ndarray:
+    """Sphere permutation by Morton code of the center (stable)."""
+    lo = centers.min(axis=0)
+    span = np.maximum(centers.max(axis=0) - lo, 1e-12)
+    q = np.clip(((centers - lo) / span * 1023.0), 0, 1023).astype(np.uint32)
+    return np.argsort(_morton3(q), kind="stable")
+
+
+def kd_chunk_order(centers: np.ndarray, chunk: int) -> np.ndarray:
+    """Permutation grouping centers into consecutive ``chunk``-sized,
+    spatially compact groups by recursive balanced longest-axis splits.
+    Split points land on multiples of ``chunk`` so only the final group is
+    partial. Like the Morton sort, the reorder affects only equal-t
+    tie-breaking."""
+
+    def rec(idx):
+        if len(idx) <= chunk:
+            return [idx]
+        c = centers[idx]
+        ax = int(np.argmax(c.max(axis=0) - c.min(axis=0)))
+        order = idx[np.argsort(c[:, ax], kind="stable")]
+        n_groups = -(-len(idx) // chunk)
+        m = (n_groups // 2) * chunk
+        return rec(order[:m]) + rec(order[m:])
+
+    return np.concatenate(rec(np.arange(len(centers))))
+
+
+def sphere_order(world: api.World, partition: str = "kd",
+                 partition_chunk: int = 48) -> np.ndarray:
+    """The JAX package's spatial-sort permutation of ``world.spheres``."""
+    spheres = world.spheres
+    n = len(spheres)
+    if partition not in ("morton", "kd"):
+        raise ValueError(f"unknown partition {partition!r}")
+    centers = np.asarray([s.center for s in spheres], np.float32)
+    order = morton_order(centers)
+    if n > LEADERS:
+        # Hoist the LEADERS largest spheres to the front, keeping Morton
+        # order within each group.
+        radii = np.abs(np.asarray([s.radius for s in spheres], np.float32))
+        big = np.argsort(-radii[order], kind="stable")[:LEADERS]
+        lead_mask = np.zeros(len(order), bool)
+        lead_mask[big] = True
+        order = np.concatenate([order[lead_mask], order[~lead_mask]])
+        if partition == "kd":
+            rest = order[LEADERS:]
+            order = np.concatenate([
+                order[:LEADERS],
+                rest[kd_chunk_order(centers[rest], partition_chunk)],
+            ])
+    elif partition == "kd":
+        order = order[kd_chunk_order(centers[order], partition_chunk)]
+    return order
+
+
+def compile_scene(
+    world: api.World,
+    pad_to: int = SPHERE_PAD,
+    spatial_sort: bool = False,
+    partition: str = "kd",
+    partition_chunk: int = 48,
+    device="cpu",
+) -> CompiledScene:
+    """Flatten a spheres-only api.World into padded SoA tensors on ``device``.
+
+    ``spatial_sort``, ``partition`` and ``partition_chunk`` order the
+    spheres as the JAX ``compile_scene`` does with the same arguments.
+    """
+    if world.meshes:
+        raise NotImplementedError(
+            "triangle meshes are not supported by the PyTorch port yet"
+        )
+    if world.texture_set:
+        raise NotImplementedError(
+            "textured materials are not supported by the PyTorch port yet"
+        )
+    n = len(world.spheres)
+    spheres = world.spheres
+    if spatial_sort and n > 1:
+        order = sphere_order(world, partition, partition_chunk)
+        spheres = tuple(spheres[i] for i in order)
+    npad = max(pad_to, -(-max(n, 1) // pad_to) * pad_to)
+
+    center = np.zeros((n, 3), np.float32)
+    radius = np.zeros((n,), np.float32)
+    albedo = np.zeros((n, 3), np.float32)
+    fuzz = np.zeros((n,), np.float32)
+    ior = np.ones((n,), np.float32)
+    mat_ty = np.zeros((n,), np.int32)
+    for i, s in enumerate(spheres):
+        center[i] = s.center
+        radius[i] = s.radius
+        albedo[i], fuzz[i], ior[i], mat_ty[i] = _material_row(s.material)
+
+    radius_sq = radius * radius
+    center_p = _pad(center, npad, 0.0)
+    albedo_p = _pad(albedo, npad, 0.0)
+    return scene_from_numpy(
+        {
+            "center.x": center_p[:, 0],
+            "center.y": center_p[:, 1],
+            "center.z": center_p[:, 2],
+            "radius": _pad(radius, npad, 1.0),
+            "radius_sq": _pad(radius_sq, npad, -1.0),
+            "albedo.x": albedo_p[:, 0],
+            "albedo.y": albedo_p[:, 1],
+            "albedo.z": albedo_p[:, 2],
+            "fuzz": _pad(fuzz, npad, 0.0),
+            "ior": _pad(ior, npad, 1.0),
+            "mat_ty": _pad(mat_ty, npad, api.MATERIAL_NONE),
+        },
+        device=device,
+    )
+
+
+def scene_from_numpy(arrays: Dict[str, np.ndarray], device="cpu") -> CompiledScene:
+    """Build the port's scene from a compiled scene's arrays.
+
+    ``arrays`` maps each name of ``SCENE_LEAVES`` (and optionally ``"cam"``,
+    the [19] packed camera) to a numpy array: the leaves of a JAX
+    ``CompiledScene`` carry across unchanged, so the same compiled world
+    can be rendered by both packages.
+    """
+    missing = [k for k in SCENE_LEAVES if k not in arrays]
+    if missing:
+        raise KeyError(f"scene arrays lack {missing}")
+    # np.array copies: the scene owns its memory whatever the caller holds.
+    t = lambda k, dt: torch.from_numpy(np.array(arrays[k], dtype=dt)).to(device)  # noqa: E731
+    f32 = np.float32
+    cam = arrays.get("cam")
+    return CompiledScene(
+        center=V3(t("center.x", f32), t("center.y", f32), t("center.z", f32)),
+        radius=t("radius", f32),
+        radius_sq=t("radius_sq", f32),
+        albedo=V3(t("albedo.x", f32), t("albedo.y", f32), t("albedo.z", f32)),
+        fuzz=t("fuzz", f32),
+        ior=t("ior", f32),
+        mat_ty=t("mat_ty", np.int32),
+        cam=None if cam is None else t("cam", f32),
+    )

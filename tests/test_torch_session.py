@@ -1,0 +1,149 @@
+"""The PyTorch port's session, checkpoints, dispatch and CLI."""
+
+import os
+import pathlib
+import subprocess
+import sys
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from myraytracer_tpu.render.session import _blend_chain as jblend
+from myraytracer_tpu_torch import cli
+from myraytracer_tpu_torch.config import RenderConfig
+from myraytracer_tpu_torch.core import rng as trng
+from myraytracer_tpu_torch.kernels import trace as ktrace
+from myraytracer_tpu_torch.output.image import read_png
+from myraytracer_tpu_torch.render import dispatch
+from myraytracer_tpu_torch.render.session import RenderSession, _blend_chain
+from myraytracer_tpu_torch.scene import presets
+
+REPO = pathlib.Path(__file__).resolve().parents[1]
+CFG = RenderConfig(width=16, height=8, samples_per_frame=2, ray_depth=4, backend="torch")
+
+
+@pytest.mark.parametrize("cap", [1.0, 0.9])
+def test_blend_chain_bitwise_equal_to_jax(cap):
+    """The session's weights for frames 0..5, on the same images."""
+    rs = np.random.RandomState(0)
+    fb = rs.random_sample((18, 32, 3)).astype(np.float32)
+    imgs = rs.random_sample((6, 3, 18, 32)).astype(np.float32)
+    w = np.asarray([min(cap, n / (n + 1)) if n else 0.0 for n in range(6)], np.float32)
+    want = np.asarray(jblend(jnp.asarray(fb), jnp.asarray(imgs), jnp.asarray(w)))
+    got = _blend_chain(torch.from_numpy(fb), torch.from_numpy(imgs), torch.from_numpy(w))
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+def test_checkpoint_resume_continues_the_stream(tmp_path):
+    world = presets.defocus_scene()
+    straight = dispatch.make_session(world, CFG)
+    straight.run(3)
+
+    first = dispatch.make_session(world, CFG)
+    first.run(2)
+    ck = tmp_path / "ck.npz"
+    first.save_checkpoint(ck)
+    resumed = dispatch.make_session(world, CFG)
+    resumed.load_checkpoint(ck)
+    assert (resumed.frame_count, resumed.sample_cursor) == (2, 4)
+    resumed.run(1)
+    assert torch.equal(resumed.framebuffer, straight.framebuffer)
+    assert resumed.segments_traced == straight.segments_traced
+    # The packed runtime camera is part of the state.
+    assert torch.equal(resumed.scene.cam, straight.scene.cam)
+
+
+def test_resume_refuses_other_backend_and_other_world(tmp_path):
+    world = presets.reference_scene()
+    s = dispatch.make_session(world, CFG)
+    s.run(1)
+    ck = tmp_path / "ck.npz"
+    s.save_checkpoint(ck)
+    # The same file, claiming the CUDA kernel produced it.
+    with np.load(ck) as z:
+        arrays = dict(z)
+    arrays["meta"] = str(arrays["meta"]).replace('"backend": "torch"', '"backend": "cuda"')
+    other = tmp_path / "cuda.npz"
+    np.savez(other, **arrays)
+    with pytest.raises(ValueError, match="backend"):
+        dispatch.make_session(world, CFG).load_checkpoint(other)
+    with pytest.raises(ValueError, match="fingerprint"):
+        dispatch.make_session(presets.lambertian_sphere_scene(), CFG).load_checkpoint(ck)
+    with pytest.raises(ValueError, match="ray_depth"):
+        dispatch.make_session(world, CFG.replace(ray_depth=5)).load_checkpoint(ck)
+
+
+def test_cursor_overflow_guard():
+    s = RenderSession(presets.reference_scene(), CFG)
+    s.sample_cursor = trng.M32 // trng.DRAWS_PER_SAMPLE
+    with pytest.raises(RuntimeError, match="overflow"):
+        s.step()
+
+
+def test_set_camera_resets_accumulation():
+    s = dispatch.make_session(presets.defocus_scene(), CFG)
+    s.run(1)
+    cam = presets.final_scene().camera
+    s.set_camera(cam)
+    assert s.frame_count == 0 and not s.framebuffer.any()
+    assert s.sample_cursor == CFG.samples_per_frame  # the stream continues
+    with pytest.raises(ValueError):
+        dispatch.make_session(presets.reference_scene(), CFG).set_camera(cam)
+
+
+def test_auto_backend_is_torch_without_a_gpu():
+    s = dispatch.make_session(presets.reference_scene(), CFG.replace(backend="auto"))
+    assert s.backend_resolved == "torch" and s.device.type == "cpu"
+
+
+def test_cli_writes_png(tmp_path):
+    out = tmp_path / "cli.png"
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    res = subprocess.run(
+        [sys.executable, "-m", "myraytracer_tpu_torch", "--backend", "torch",
+         "--scene", "reference", "--width", "32", "--height", "18",
+         "--frames", "2", "--ray-depth", "4", "--out", str(out)],
+        cwd=REPO, env=env, capture_output=True, text=True, timeout=300,
+    )
+    assert res.returncode == 0, res.stderr
+    assert "Mrays/s=" in res.stderr and "frame=2 spp=2" in res.stderr
+    img = read_png(out)
+    assert img.shape == (18, 32, 3) and 0 < img.mean() < 255
+
+
+def test_cli_backend_cuda_never_renders_on_the_cpu(tmp_path):
+    out = tmp_path / "x.png"
+    with pytest.raises(RuntimeError, match="CUDA GPU"):
+        cli.main(["--backend", "cuda", "--width", "8", "--height", "4",
+                  "--out", str(out)])
+    assert not out.exists()
+
+
+def test_cli_rejects_unknown_scene():
+    with pytest.raises(SystemExit):
+        cli.main(["--scene", "nosuch", "--backend", "torch"])
+
+
+@pytest.mark.parametrize("kw", [
+    dict(ray_depth=trng.MAX_DEPTH + 1),
+    dict(nee_lights=("light",)),
+    dict(qmc=True),
+    dict(rr=3),
+    dict(texture_set=(1,)),
+    dict(material_set=(1, 4)),
+    dict(frames=2),
+])
+def test_cuda_renderer_refuses_unsupported_features(kw):
+    args = dict(cam=presets.reference_scene().camera, width=16, height=8,
+                samples_per_frame=1, ray_depth=4)
+    args.update(kw)
+    with pytest.raises(NotImplementedError):
+        ktrace.make_renderer(**args)
+
+
+@pytest.mark.parametrize("name", ["mesh", "texture", "light"])
+def test_sessions_refuse_unsupported_scenes(name):
+    with pytest.raises(NotImplementedError):
+        dispatch.make_session(presets.get_scene(name), CFG)
