@@ -4,10 +4,11 @@ The reference's native runner (``native-runner/src/main.rs:4-43``): the
 same five flags with the same defaults and the same 0-means-derive size
 rule, headless — ``--frames`` bounds the progressive loop and the result is
 written to ``--out``. Extensions: scene, seed, backend, output transfer,
-checkpoint and resume, and a per-frame log line (frame, accumulated spp,
+checkpoint and resume, frame batching (``--frame-batch``), adaptive
+sampling (``--adaptive``), and a log line per step (frame, accumulated spp,
 ms, Mrays/s = traced ray segments per second).
 
-The JAX package's other flags (serving, adaptive sampling, denoising,
+The JAX package's other flags (serving, interactive orbits, denoising,
 AOVs, OBJ input, sharding, NEE, QMC, Russian roulette, ...) are not in the
 port yet.
 """
@@ -15,6 +16,7 @@ port yet.
 from __future__ import annotations
 
 import argparse
+import json
 import logging
 import os
 import sys
@@ -63,6 +65,21 @@ def build_parser() -> argparse.ArgumentParser:
         help=".png/.ppm (u8, --gamma transfer) or .pfm/.npy (raw linear "
         "float) output path",
     )
+    p.add_argument(
+        "--frame-batch", type=int, default=0, metavar="K",
+        help="progressive frames rendered per kernel launch (bitwise "
+        "identical to K separate frames; with --adaptive, sample windows "
+        "per round). 0 = auto: measured on the CUDA kernel, 1 on torch",
+    )
+    p.add_argument(
+        "--adaptive", type=int, nargs="?", const=0, default=None,
+        metavar="BLOCKS",
+        help="variance-guided adaptive sampling: spend the --frames sample "
+        "budget where the image is still noisy, at 64x32 pixel-block "
+        "granularity (render/adaptive.py). Optional value = blocks "
+        "re-rendered per round (default ~1/4 of the grid). Composes with "
+        "--frame-batch and --checkpoint/--resume",
+    )
     p.add_argument("--checkpoint", default=None, help="save checkpoint here")
     p.add_argument("--resume", default=None, help="resume from checkpoint")
     p.add_argument("--log-level", default=None,
@@ -90,6 +107,7 @@ def main(argv=None) -> int:
         seed=args.seed,
         gamma=args.gamma,
         backend=args.backend,
+        frame_batch=args.frame_batch,
         max_frames=args.frames,
     )
     from myraytracer_tpu_torch.render.dispatch import make_session
@@ -98,11 +116,15 @@ def main(argv=None) -> int:
         world = get_scene(args.scene, seed=config.seed)
     except KeyError as e:
         raise SystemExit(f"--scene: {e.args[0]}") from None
+    if args.adaptive is not None:
+        return _run_adaptive(args, config, world)
     session = make_session(world, config)
     log.info(
-        "rendering scene=%s %dx%d spp/frame=%d depth=%d frames=%d backend=%s",
+        "rendering scene=%s %dx%d spp/frame=%d depth=%d frames=%d "
+        "frame_batch=%d backend=%s",
         args.scene, session.width, session.height, config.samples_per_frame,
-        config.ray_depth, args.frames, session.backend_resolved,
+        config.ray_depth, args.frames, session.frame_batch,
+        session.backend_resolved,
     )
     if args.resume:
         session.load_checkpoint(args.resume)
@@ -111,22 +133,99 @@ def main(argv=None) -> int:
             args.resume, session.frame_count, session.accumulated_spp,
         )
 
-    for _ in range(args.frames):
+    # One step = frame_batch frames; the auto batch never overshoots
+    # --frames (config.max_frames), an explicit one may round it up.
+    for _ in range(-(-args.frames // session.frame_batch)):
         segs0 = session.segments_traced
         t0 = time.perf_counter()
         session.step()
-        segs = session.segments_traced - segs0  # waits for the frame
+        segs = session.segments_traced - segs0  # waits for the step
         dt = time.perf_counter() - t0
         log.info(
             "frame=%d spp=%d ms=%.1f Mrays/s=%.1f",
-            session.frame_count, session.accumulated_spp, dt * 1e3,
-            segs / dt / 1e6,
+            session.frame_count, session.accumulated_spp,
+            dt * 1e3 / session.frame_batch, segs / dt / 1e6,
         )
 
     if args.checkpoint:
         session.save_checkpoint(args.checkpoint)
         log.info("checkpoint saved to %s", args.checkpoint)
     write_image(args.out, session.framebuffer.cpu().numpy(), gamma=args.gamma)
+    log.info("wrote %s", args.out)
+    return 0
+
+
+def _run_adaptive(args, config: RenderConfig, world) -> int:
+    """Adaptive-sampling render loop (render/adaptive.py), headless.
+
+    ``--frames N`` is the budget of N uniform frames' worth of samples; the
+    session reallocates it toward high-variance pixel blocks after a
+    two-cover bootstrap. A resumed run spends N frames more.
+    """
+    import numpy as np
+
+    from myraytracer_tpu_torch.render.adaptive import AdaptiveSession
+
+    if args.resume and config.frame_batch == 0:
+        # The saved session's window count is provenance: inherit it rather
+        # than re-deriving it from this run's (possibly other) budget.
+        with np.load(args.resume, allow_pickle=False) as data:
+            saved = json.loads(str(data["meta"])).get("windows")
+        if saved:
+            config = config.replace(frame_batch=int(saved))
+
+    session = AdaptiveSession(world, config, n_sel=max(0, args.adaptive))
+    if args.resume:
+        session.load_checkpoint(args.resume)
+        log.info(
+            "resumed adaptive state from %s (%d rounds, %d samples spent)",
+            args.resume, session.rounds, session.samples_spent,
+        )
+    budget = args.frames * config.samples_per_frame * session.width * session.height
+    budget += session.samples_spent  # a resumed run's budget is extra
+    round_cost = session.round_cost()
+    log.info(
+        "adaptive render %dx%d spp/round=%d depth=%d budget=%d frames "
+        "(%d blocks of %dx%d, %d per round, windows=%d%s) backend=%s",
+        session.width, session.height, config.samples_per_frame,
+        config.ray_depth, args.frames, session.n_blocks, session.block_w,
+        session.block_h, session.n_sel, session.windows,
+        "" if config.frame_batch > 0 else " auto", session.backend_resolved,
+    )
+    t_start = t_sync = time.perf_counter()
+    segs_start = segs_sync = session.segments_traced
+    # The bootstrap (two covers: variance needs two rounds per block) runs
+    # on a fresh session even past a tiny budget, so every pixel is
+    # rendered; a resumed checkpoint that completed it does not re-pay it.
+    if not session.bootstrapped:
+        session.bootstrap()
+    # Rounds queue on the device; the host syncs about once a second.
+    while session.samples_spent + round_cost <= budget:
+        session.step()
+        if time.perf_counter() - t_sync >= 1.0:
+            segs = session.segments_traced  # waits for the queued rounds
+            dt = time.perf_counter() - t_sync
+            log.info(
+                "rounds=%d spent=%.1f%% of budget Mrays/s=%.1f",
+                session.rounds, 100.0 * session.samples_spent / budget,
+                (segs - segs_sync) / dt / 1e6,
+            )
+            t_sync, segs_sync = time.perf_counter(), segs
+    final = session.framebuffer.cpu().numpy()
+    segs = session.segments_traced - segs_start
+    dt = time.perf_counter() - t_start
+    smap = session.spp_map
+    log.info(
+        "adaptive done: rounds=%d samples=%d (%.1f%% of budget) "
+        "spp min/mean/max=%d/%.1f/%d s=%.3f Mrays/s=%.1f",
+        session.rounds, session.samples_spent,
+        100.0 * session.samples_spent / budget,
+        smap.min(), float(smap.mean()), smap.max(), dt, segs / dt / 1e6,
+    )
+    if args.checkpoint:
+        session.save_checkpoint(args.checkpoint)
+        log.info("adaptive checkpoint saved to %s", args.checkpoint)
+    write_image(args.out, final, gamma=args.gamma)
     log.info("wrote %s", args.out)
     return 0
 

@@ -22,6 +22,19 @@ from typing import Tuple, Union
 DEFAULT_WIDTH = 640
 DEFAULT_HEIGHT = 360
 
+# Auto batching on the CUDA kernels, from the sweeps on an NVIDIA H100 in
+# PERF.md (final scene, 1200x800, depth 50). The uniform kernel takes frames
+# until a launch holds about CUDA_FRAME_WINDOW samples per pixel: at spp 1,
+# 16 frames a launch cut the time per frame from 11.05 ms to 8.5 ms, and 64
+# frames cut it by at most 3.5% more for 4x the bucket memory. An adaptive
+# round takes windows until it holds about CUDA_ADAPTIVE_WINDOW samples, at
+# most CUDA_ADAPTIVE_CAP windows (the largest count measured): at spp 8 the
+# session's rate rose up to 16 windows, as the per-round score pass spreads
+# over more samples.
+CUDA_FRAME_WINDOW = 16
+CUDA_ADAPTIVE_WINDOW = 128
+CUDA_ADAPTIVE_CAP = 16
+
 
 @dataclasses.dataclass(frozen=True)
 class RenderConfig:
@@ -44,9 +57,8 @@ class RenderConfig:
     backend: str = "auto"  # "cuda" | "torch" | "auto"
     shard: str = "none"  # "none" | "tiles" | "samples"
     # Progressive frames rendered per device call (0 = auto). K > 1
-    # batches K frames into one kernel invocation with per-frame outputs,
-    # bitwise identical to K separate frames. The port's renderers take
-    # K = 1 only until the CUDA kernel gains multi-frame buckets.
+    # batches K frames into one kernel launch with per-frame outputs,
+    # bitwise identical to K separate frames.
     frame_batch: int = 0
     # Total frames the caller intends to render (0 = unbounded). Only a
     # hint: auto frame batching must not batch past the requested count
@@ -99,21 +111,41 @@ class RenderConfig:
         return max(1, min(per_pass, self.samples_per_frame))
 
     def resolve_frame_batch(self, backend: str) -> int:
-        """Frames per device call. Auto (0) is one frame on every backend:
-        multi-frame buckets (several progressive frames per kernel launch)
-        are not in the CUDA kernel yet, so nothing gains from batching."""
-        del backend
+        """Frames per device call. Auto (0) batches toward a
+        ``CUDA_FRAME_WINDOW``-sample launch on the CUDA kernel, where one
+        frame at small spp waits on each block's slowest path, and stays
+        at one frame on the plain torch backend. Never more frames than
+        ``max_frames`` asks for: the batch shrinks to a ceil split."""
         if self.frame_batch > 0:
             return self.frame_batch
-        return 1
+        if backend != "cuda" or self.shard not in ("none", "tiles"):
+            return 1
+        auto = max(1, CUDA_FRAME_WINDOW // max(1, self.samples_per_frame))
+        if self.max_frames > 0:
+            # e.g. --frames 100 at auto 64 runs 2x50, not 2x64 = 128 frames.
+            auto = min(auto, self.max_frames)
+            steps = -(-self.max_frames // auto)
+            auto = -(-self.max_frames // steps)
+        return auto
 
     def resolve_adaptive_windows(self, backend: str = "cuda") -> int:
-        """Sub-windows per adaptive round. Explicit ``frame_batch`` wins;
-        auto is 1 until the CUDA kernel renders multi-frame buckets."""
-        del backend
+        """Sub-windows per adaptive round (F; render/adaptive.py).
+
+        Explicit ``frame_batch`` wins. Auto (0) is 1 on the plain torch
+        backend; on the CUDA kernel it targets ``CUDA_ADAPTIVE_WINDOW``
+        samples a launch (F * spp), at most ``CUDA_ADAPTIVE_CAP`` windows,
+        and at most a quarter of a bounded budget, so that one bootstrap
+        pass (every block once at F windows) leaves rounds to spend.
+        """
         if self.frame_batch > 0:
             return self.frame_batch
-        return 1
+        if backend != "cuda":
+            return 1
+        auto = max(1, min(CUDA_ADAPTIVE_CAP,
+                          CUDA_ADAPTIVE_WINDOW // max(1, self.samples_per_frame)))
+        if self.max_frames > 0:
+            auto = max(1, min(auto, self.max_frames // 4))
+        return auto
 
     def replace(self, **kw) -> "RenderConfig":
         return dataclasses.replace(self, **kw)

@@ -46,13 +46,13 @@ SUPPORTED_MATERIALS = frozenset(
 
 
 def check_supported(
-    material_set=None, frames: int = 1, nee_lights=None, texture_set=None,
-    qmc: bool = False, rr: int = 0,
+    material_set=None, nee_lights=None, texture_set=None, qmc: bool = False,
+    rr: int = 0,
 ) -> None:
     """Raise ``NotImplementedError`` for what the port does not render yet.
 
-    Shared by the plain integrator and the CUDA kernel, which cover the
-    same slice of the JAX package's integrator.
+    Shared by the plain integrator, the CUDA kernel and the adaptive
+    renderers, which cover the same slice of the JAX package's integrator.
     """
     absent = []
     if nee_lights:
@@ -65,8 +65,6 @@ def check_supported(
         absent.append("textures")
     if material_set is not None and not set(material_set) <= SUPPORTED_MATERIALS:
         absent.append("emissive materials (DiffuseLight)")
-    if int(frames) != 1:
-        absent.append("multi-frame buckets (frames > 1)")
     if absent:
         raise NotImplementedError(
             "the PyTorch port does not support " + ", ".join(absent) + " yet"
@@ -200,6 +198,56 @@ def ray_generator(cam: Camera, width: int, height: int,
     return cam_mod.make_ray_generator(cam, width, height)
 
 
+def pixel_sums(
+    scene: CompiledScene,
+    ray_gen,
+    ix: torch.Tensor,
+    iy: torch.Tensor,
+    sample_start,
+    n_samples: int,
+    key,
+    width: int,
+    depth: int,
+    t_min: float,
+    t_max: float,
+    sky=None,
+    lens_draws: bool = True,
+    sample_batch: int = 1,
+) -> Tuple[V3, torch.Tensor]:
+    """Radiance sums and segment counts of 1-D pixel lanes ``(ix, iy)``
+    over sample indices ``[sample_start, sample_start + n_samples)``.
+
+    ``sample_start`` is an int, or an int64 tensor with one start a lane.
+    Samples are traced ``sample_batch`` at a time and added to a lane's sum
+    one at a time in sample order, as the CUDA kernels add them, so the
+    sums do not depend on the batching or on which other lanes are traced
+    with them. Returns (sums V3, segments int32).
+    """
+    n = ix.shape[0]
+    dev = ix.device
+    lane_id = (iy * width + ix) & M32
+    acc = V3.zeros((n,), dev)
+    segs = torch.zeros((n,), dtype=torch.int32, device=dev)
+    b = max(1, min(int(sample_batch), int(n_samples)))
+    for j0 in range(0, int(n_samples), b):
+        k = min(b, int(n_samples) - j0)
+        rows = torch.arange(k, dtype=torch.int64, device=dev)[:, None]
+        sample_id = ((sample_start + j0 + rows) & M32).expand(k, n)
+        rad, sg = render_sample_batch(
+            scene, ray_gen,
+            ix.expand(k, n).reshape(-1),
+            iy.expand(k, n).reshape(-1),
+            lane_id.expand(k, n).reshape(-1),
+            sample_id.reshape(-1),
+            key, depth, t_min, t_max, sky=sky, lens_draws=lens_draws,
+        )
+        rad = V3(*(c.view(k, n) for c in rad))
+        for r in range(k):
+            acc = acc + V3(rad.x[r], rad.y[r], rad.z[r])
+        segs = segs + sg.view(k, n).sum(dim=0, dtype=torch.int32)
+    return acc, segs
+
+
 def make_block_renderer(
     cam: Camera,
     width: int,
@@ -216,6 +264,7 @@ def make_block_renderer(
     texture_set=None,
     qmc: bool = False,
     rr: int = 0,
+    frames: int = 1,
 ):
     """Build the composable rendering primitive.
 
@@ -224,44 +273,47 @@ def make_block_renderer(
     the SUM of radiance over sample indices ``[sample_start, sample_start +
     n_valid)`` (``n_valid <= max_samples``) for image rows ``[row0, row0 +
     n_rows)``, channels last, and each pixel's traced-segment count. The
-    caller divides by the sample count. Samples are added to a pixel's sum
-    one at a time in sample order, as the CUDA kernel adds them.
+    caller divides by the sample count.
+
+    ``frames = K > 1`` is the plain version of the CUDA kernel's frame
+    buckets: ``n_valid`` must be ``K * max_samples``, and the sum becomes
+    ``[K, 3, n_rows, width]``, frame ``f`` summing samples ``[sample_start
+    + f*max_samples, sample_start + (f+1)*max_samples)``. Each frame is a
+    one-frame block call of its own, so it is bitwise that call; the
+    segment counts are totals over the K frames.
     """
-    check_supported(material_set, 1, nee_lights, texture_set, qmc, rr)
-    b = max(1, min(int(sample_batch), int(max_samples)))
+    check_supported(material_set, nee_lights, texture_set, qmc, rr)
+    frames = int(frames)
     n_pixels = n_rows * width
 
-    def block(scene: CompiledScene, key, row0, sample_start, n_valid):
+    def one(scene: CompiledScene, key, row0, sample_start, n_valid):
         dev = scene.device
-        ray_gen = ray_generator(cam, width, height, scene.cam)
         pix = torch.arange(n_pixels, dtype=torch.int64, device=dev)
-        ix = pix % width
-        iy = pix // width + int(row0)
-        lane_id = (iy * width + ix) & M32
-        acc = V3.zeros((n_pixels,), dev)
-        segs = torch.zeros((n_pixels,), dtype=torch.int32, device=dev)
-        n_valid = int(n_valid)
-        if n_valid > max_samples:
-            raise ValueError(f"n_valid {n_valid} > max_samples {max_samples}")
-        for j0 in range(0, n_valid, b):
-            k = min(b, n_valid - j0)
-            rows = torch.arange(k, dtype=torch.int64, device=dev)[:, None]
-            sample_id = ((int(sample_start) + j0 + rows) & M32).expand(k, n_pixels)
-            rad, sg = render_sample_batch(
-                scene, ray_gen,
-                ix.expand(k, n_pixels).reshape(-1),
-                iy.expand(k, n_pixels).reshape(-1),
-                lane_id.expand(k, n_pixels).reshape(-1),
-                sample_id.reshape(-1),
-                key, ray_depth, t_min, t_max, sky=sky,
-                lens_draws=not cam.reference_mode,
-            )
-            rad = V3(*(c.view(k, n_pixels) for c in rad))
-            for r in range(k):
-                acc = acc + V3(rad.x[r], rad.y[r], rad.z[r])
-            segs = segs + sg.view(k, n_pixels).sum(dim=0, dtype=torch.int32)
+        acc, segs = pixel_sums(
+            scene, ray_generator(cam, width, height, scene.cam),
+            pix % width, pix // width + int(row0), int(sample_start),
+            int(n_valid), key, width, ray_depth, t_min, t_max, sky=sky,
+            lens_draws=not cam.reference_mode, sample_batch=sample_batch,
+        )
         img_sum = acc.stacked(-1).view(n_rows, width, 3)
         return img_sum, segs.to(torch.float32).view(n_rows, width)
+
+    def block(scene: CompiledScene, key, row0, sample_start, n_valid):
+        n_valid = int(n_valid)
+        if frames == 1:
+            if n_valid > max_samples:
+                raise ValueError(f"n_valid {n_valid} > max_samples {max_samples}")
+            return one(scene, key, row0, sample_start, n_valid)
+        if n_valid != frames * max_samples:
+            raise ValueError(
+                f"n_valid {n_valid} != frames {frames} x max_samples {max_samples}"
+            )
+        sums, segs = zip(*(
+            one(scene, key, row0, int(sample_start) + f * max_samples, max_samples)
+            for f in range(frames)
+        ))
+        return (torch.stack([s.permute(2, 0, 1) for s in sums]),
+                torch.stack(segs).sum(dim=0))
 
     return block
 
@@ -290,22 +342,29 @@ def make_renderer(
     samples from global sample index ``sample_base``, and the number of
     ray segments traced. The analog of one ``State::redraw`` trace pass
     (``lib.rs:241-307``) without the accumulation blend.
+
+    ``frames = K > 1`` returns K per-frame mean images ``[K, 3, H, W]``
+    (JAX ``render/integrator.py:378-424``), each bitwise the image of a
+    one-frame call at its sample base.
     """
-    check_supported(material_set, frames, nee_lights, texture_set, qmc, rr)
     spp = int(samples_per_frame)
     block = make_block_renderer(
         cam, width, height, height, spp, ray_depth, t_min=t_min, t_max=t_max,
         sample_batch=sample_batch, material_set=material_set, sky=sky,
+        nee_lights=nee_lights, texture_set=texture_set, qmc=qmc, rr=rr,
+        frames=frames,
     )
-    return frame_renderer(block, spp)
+    return frame_renderer(block, spp, frames)
 
 
-def frame_renderer(block, spp: int):
-    """``render(scene, key, sample_base)`` over a full-image ``block``:
-    the sum divided by ``spp`` and the segment total in float64."""
+def frame_renderer(block, spp: int, frames: int = 1):
+    """``render(scene, key, sample_base)`` over a full-image ``block`` of
+    ``frames`` frames: the sums divided by ``spp`` and the segment total in
+    float64."""
+    n_valid = int(frames) * int(spp)
 
     def render(scene: CompiledScene, key, sample_base):
-        img_sum, segs = block(scene, key, 0, int(sample_base), spp)
+        img_sum, segs = block(scene, key, 0, int(sample_base), n_valid)
         return img_sum * (1.0 / spp), segs.sum(dtype=torch.float64)
 
     return render

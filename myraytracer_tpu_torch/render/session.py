@@ -41,20 +41,37 @@ CHECKPOINT_VERSION = 3
 SPATIAL_SORT_MIN = 64
 
 
+def fma_f32(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """``a*b + c`` in f32 with one rounding, as XLA's CPU backend computes
+    the products it contracts into FMAs.
+
+    The f32 product is exact in f64; the f64 sum is rounded to odd (its
+    rounding error, from TwoSum, sets the last bit), so the final rounding
+    to f32 is the correctly rounded fused result on every device.
+    """
+    p = a.double() * b.double()
+    cd = c.double()
+    s = p + cd
+    bb = s - p
+    err = (p - (s - bb)) + (cd - bb)
+    even = (s.view(torch.int64) & 1) == 0
+    toward = torch.where(err > 0, torch.inf, -torch.inf).to(s.dtype)
+    s = torch.where((err != 0) & even, torch.nextafter(s, toward), s)
+    return s.float()
+
+
 def _blend_chain(fb_hwc: torch.Tensor, imgs_kchw: torch.Tensor,
                  weights: torch.Tensor) -> torch.Tensor:
     """Blend K per-frame images ([K,3,H,W]) into the framebuffer ([H,W,3])
     in turn, with per-frame f32 weights: ``img*(1-w) + fb*w``.
 
     XLA compiles the JAX package's blend with the ``fb*w`` product fused
-    into the add (one rounding), so this does the same: the f32 product is
-    exact in f64, and the f64 sum is rounded to f32 once. The result is
-    bitwise the JAX blend's, on every device.
+    into the add (one rounding), so this does the same (``fma_f32``): the
+    result is bitwise the JAX blend's, on every device.
     """
     fb = fb_hwc.permute(2, 0, 1)
     for img, w in zip(imgs_kchw, weights):
-        rest = img * (1.0 - w)
-        fb = (fb.double() * w.double() + rest.double()).float()
+        fb = fma_f32(fb, w, img * (1.0 - w))
     return fb.permute(1, 2, 0).contiguous()
 
 
@@ -203,9 +220,9 @@ class RenderSession:
             dtype=torch.float32,
             device=self.device,
         )
-        self.framebuffer = _blend_chain(
-            self.framebuffer, img.permute(2, 0, 1)[None], ws
-        )
+        if self.frame_batch == 1:
+            img = img.permute(2, 0, 1)[None]
+        self.framebuffer = _blend_chain(self.framebuffer, img, ws)
         self.frame_count += self.frame_batch
         self.sample_cursor += self.config.samples_per_frame * self.frame_batch
         self._segs_pending.append(segs)
@@ -294,7 +311,8 @@ class RenderSession:
             raise ValueError(f"checkpoint version {meta['version']} unsupported")
         if meta.get("adaptive"):
             raise ValueError(
-                "adaptive checkpoint: the PyTorch port has no adaptive session"
+                "adaptive checkpoint: resume it with "
+                "AdaptiveSession.load_checkpoint (render/adaptive.py)"
             )
         for field in (
             "width", "height", "samples_per_frame", "ray_depth", "seed",

@@ -19,6 +19,13 @@ s = make_session(get_scene("defocus"), RenderConfig(width=8, height=4, ray_depth
                                                     backend="torch"))
 fb = s.run(1)
 assert fb.shape == (4, 8, 3) and float(fb.mean()) > 0
+import myraytracer_tpu_torch.cli, myraytracer_tpu_torch.sweep
+import myraytracer_tpu_torch.kernels.trace
+from myraytracer_tpu_torch.render.adaptive import AdaptiveSession
+a = AdaptiveSession(get_scene("defocus"), RenderConfig(width=8, height=4, ray_depth=3,
+                                                       backend="torch"))
+a.step()
+assert a.framebuffer.shape == (4, 8, 3) and float(a.framebuffer.mean()) > 0
 bad = sorted(m for m in sys.modules if m == "jax" or m.startswith(("jax.", "myraytracer_tpu.")))
 bad += [m for m in ("myraytracer_tpu", "jaxlib") if m in sys.modules]
 print("LOADED", bad)

@@ -17,7 +17,7 @@ from myraytracer_tpu_torch.core import rng as trng
 from myraytracer_tpu_torch.kernels import trace as ktrace
 from myraytracer_tpu_torch.output.image import read_png
 from myraytracer_tpu_torch.render import dispatch
-from myraytracer_tpu_torch.render.session import RenderSession, _blend_chain
+from myraytracer_tpu_torch.render.session import RenderSession, _blend_chain, fma_f32
 from myraytracer_tpu_torch.scene import presets
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
@@ -34,6 +34,24 @@ def test_blend_chain_bitwise_equal_to_jax(cap):
     want = np.asarray(jblend(jnp.asarray(fb), jnp.asarray(imgs), jnp.asarray(w)))
     got = _blend_chain(torch.from_numpy(fb), torch.from_numpy(imgs), torch.from_numpy(w))
     np.testing.assert_array_equal(got.numpy(), want)
+
+
+def test_fma_f32_is_xla_fused_multiply_add():
+    """XLA's CPU backend fuses ``a*b + c`` into one rounding. An f64 sum
+    rounded to f32 is not that: on the first input the exact sum lies just
+    below an f32 midpoint, the f64 sum rounds onto the midpoint, and the
+    f32 rounding then goes the wrong way. Round-to-odd keeps it right."""
+    import jax
+
+    rs = np.random.RandomState(1)
+    a = np.concatenate([[2.0**-24 * (1 + 2.0**-23)], rs.standard_normal(4095)]).astype(np.float32)
+    b = np.concatenate([[1 - 2.0**-23], rs.standard_normal(4095)]).astype(np.float32)
+    c = np.concatenate([[1 + 2.0**-23], rs.standard_normal(4095)]).astype(np.float32)
+    want = np.asarray(jax.jit(lambda a, b, c: a * b + c)(a, b, c))
+    got = fma_f32(torch.from_numpy(a), torch.from_numpy(b), torch.from_numpy(c))
+    np.testing.assert_array_equal(got.numpy(), want)
+    f64_sum = (a.astype(np.float64) * b + c).astype(np.float32)
+    assert f64_sum[0] != want[0]
 
 
 def test_checkpoint_resume_continues_the_stream(tmp_path):
@@ -133,7 +151,8 @@ def test_cli_rejects_unknown_scene():
     dict(rr=3),
     dict(texture_set=(1,)),
     dict(material_set=(1, 4)),
-    dict(frames=2),
+    # Multi-frame buckets are ported; image textures (K7) are not.
+    dict(texture_set=(3,)),
 ])
 def test_cuda_renderer_refuses_unsupported_features(kw):
     args = dict(cam=presets.reference_scene().camera, width=16, height=8,
