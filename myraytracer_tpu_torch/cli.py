@@ -8,9 +8,12 @@ checkpoint and resume, frame batching (``--frame-batch``), adaptive
 sampling (``--adaptive``), and a log line per step (frame, accumulated spp,
 ms, Mrays/s = traced ray segments per second).
 
-The JAX package's other flags (serving, interactive orbits, denoising,
-AOVs, OBJ input, sharding, NEE, QMC, Russian roulette, ...) are not in the
-port yet.
+Sphere scenes, triangle meshes (``mesh``, ``mesh:N``) and large sphere
+fields (``spheres:N``) render on both backends; the CUDA kernel sweeps them
+behind the JAX kernel's chunk gates. The JAX package's other flags
+(serving, interactive orbits, denoising, AOVs, OBJ input, sharding, NEE,
+QMC, Russian roulette, ...) and its emissive and textured scenes are not in
+the port yet.
 """
 
 from __future__ import annotations
@@ -46,7 +49,10 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument(
         "--scene", default="reference", metavar="NAME",
         help="built-in scene: reference, lambertian, three-sphere, defocus, "
-        "final, or spheres:N (final-scene-style 2Nx2N sphere field)",
+        "final, mesh (triangle meshes), spheres:N (final-scene-style 2Nx2N "
+        "sphere field, e.g. spheres:100 ~ 40k spheres) or mesh:N (icosphere "
+        "subdivisions, ~20*4^N triangles, e.g. mesh:5 ~ 25.6k); all run on "
+        "--backend cuda and torch",
     )
     p.add_argument("--seed", type=int, default=0)
     p.add_argument(

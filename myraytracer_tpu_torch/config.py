@@ -17,7 +17,9 @@ a headless accelerator host).
 from __future__ import annotations
 
 import dataclasses
-from typing import Tuple, Union
+from typing import Optional, Tuple, Union
+
+from myraytracer_tpu_torch.scene.compile import _auto_tri_chunk
 
 DEFAULT_WIDTH = 640
 DEFAULT_HEIGHT = 360
@@ -25,8 +27,9 @@ DEFAULT_HEIGHT = 360
 # Auto batching on the CUDA kernels, from the sweeps on an NVIDIA H100 in
 # PERF.md (final scene, 1200x800, depth 50). The uniform kernel takes frames
 # until a launch holds about CUDA_FRAME_WINDOW samples per pixel: at spp 1,
-# 16 frames a launch cut the time per frame from 11.05 ms to 8.5 ms, and 64
-# frames cut it by at most 3.5% more for 4x the bucket memory. An adaptive
+# 16 frames a launch cut the time per frame from 11.05 ms to 8.5 ms with no
+# gates and from 2.26 ms to 1.87-1.93 ms with the gated sweep, and 64 frames
+# cut it by at most 3.5% more for 4x the bucket memory. An adaptive
 # round takes windows until it holds about CUDA_ADAPTIVE_WINDOW samples, at
 # most CUDA_ADAPTIVE_CAP windows (the largest count measured): at spp 8 the
 # session's rate rose up to 16 windows, as the per-round score pass spreads
@@ -149,3 +152,55 @@ class RenderConfig:
 
     def replace(self, **kw) -> "RenderConfig":
         return dataclasses.replace(self, **kw)
+
+
+@dataclasses.dataclass(frozen=True)
+class KernelConfig:
+    """The closest-hit sweep's gate settings, passed to the kernel
+    factories (``kernels/trace.py``) as the JAX package's ``config=``.
+
+    The names and defaults are those of the JAX ``KernelConfig``
+    (``myraytracer_tpu/kernels/trace.py:188-257``) for the fields the CUDA
+    kernel reads. ``compile_scene``'s kd partition aligns sphere groups to
+    ``CULL_CHUNK`` = 48 and triangle groups to ``TRI_CHUNK_AUTO``, and that
+    order decides equal-t ties, so the defaults stay the JAX package's.
+
+    * ``UNROLL_MAX``: tables at most this wide (after padding) are swept
+      with no gates. On the CUDA kernel it unrolls nothing.
+    * ``CULL_MIN``: the sphere table is gated when it is wider than this
+      (``FORCE_CULL`` None); ``FORCE_CULL`` True or False overrides. The
+      triangle table is gated whenever it is wider than ``UNROLL_MAX``.
+    * ``CULL_CHUNK``: spheres per gated chunk after the ``LEADERS``
+      prologue; ``TRI_CHUNK``: triangles per chunk (0 = the auto ladder,
+      ``resolve_tri_chunk``).
+    * ``SUPER``: chunks under one outer gate, from ``SUPER_MIN`` chunks on.
+    """
+
+    UNROLL_MAX: int = 64
+    CULL_MIN: int = 64
+    CULL_CHUNK: int = 48
+    TRI_CHUNK: int = 0
+    SUPER: int = 8
+    SUPER_MIN: int = 24
+    FORCE_CULL: Optional[bool] = None
+
+    def cull_spheres(self, n_spheres: int) -> bool:
+        """Whether a padded sphere table of ``n_spheres`` slots is swept
+        behind gates (``trace.py:1032-1036``, ``1876-1881``)."""
+        cull = self.FORCE_CULL if self.FORCE_CULL is not None else n_spheres > self.CULL_MIN
+        return n_spheres > self.UNROLL_MAX and bool(cull)
+
+    def cull_triangles(self, n_tris: int) -> bool:
+        """Whether a padded triangle table of ``n_tris`` slots is swept
+        behind gates (``trace.py:1219``), whatever ``FORCE_CULL`` says."""
+        return n_tris > self.UNROLL_MAX
+
+
+DEFAULT_KERNEL_CONFIG = KernelConfig()
+
+
+def resolve_tri_chunk(cfg: KernelConfig, n_tris: int) -> int:
+    """The triangle chunk width for a scene of ``n_tris`` (compiled, padded)
+    triangles: ``cfg.TRI_CHUNK`` when set, else the ``TRI_CHUNK_AUTO``
+    ladder (JAX ``kernels/trace.py:270-284``)."""
+    return cfg.TRI_CHUNK or _auto_tri_chunk(n_tris)

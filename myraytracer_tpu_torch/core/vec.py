@@ -73,6 +73,13 @@ class V3(NamedTuple):
     def dot(self, o: "V3") -> torch.Tensor:
         return self.x * o.x + self.y * o.y + self.z * o.z
 
+    def cross(self, o: "V3") -> "V3":
+        return V3(
+            self.y * o.z - self.z * o.y,
+            self.z * o.x - self.x * o.z,
+            self.x * o.y - self.y * o.x,
+        )
+
     def length_sq(self) -> torch.Tensor:
         return self.dot(self)
 

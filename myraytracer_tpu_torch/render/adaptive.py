@@ -37,7 +37,7 @@ from myraytracer_tpu_torch.render import integrator
 from myraytracer_tpu_torch.render.camera import pack_camera
 from myraytracer_tpu_torch.render.dispatch import resolve_backend
 from myraytracer_tpu_torch.render.session import (
-    CHECKPOINT_VERSION, SPATIAL_SORT_MIN, fma_f32, scene_fingerprint,
+    CHECKPOINT_VERSION, fma_f32, scene_fingerprint, wants_spatial_sort,
 )
 from myraytracer_tpu_torch.scene import api
 from myraytracer_tpu_torch.scene.compile import CompiledScene, compile_scene
@@ -63,7 +63,7 @@ def block_geometry(width, height, block_w, block_h):
 def adaptive_block_sums(
     scene: CompiledScene, cam: api.Camera, key, width: int, height: int,
     block_ids: torch.Tensor, samp0: torch.Tensor, spp: int, windows: int,
-    depth: int, t_min: float = 1e-3, t_max: float = 1e4, sky=None,
+    depth: int, t_min: float = 1e-3, t_max: float = 1e4, sky=None, gates=None,
 ):
     """The plain version of the CUDA adaptive kernel.
 
@@ -72,7 +72,7 @@ def adaptive_block_sums(
     BLOCK_H, BLOCK_W, 3] f32, segs [n_sel, BLOCK_H, BLOCK_W] f32)``: the
     sentinel id (``n_blocks``) and pixels past the image's edge hold zeros.
     Each pixel's sums are ``integrator.pixel_sums``', as the uniform
-    renderer's are.
+    renderer's are, behind the kernel's ``gates`` when they are given.
     """
     dev = scene.device
     ids = block_ids.to(device=dev, dtype=torch.int64)
@@ -96,6 +96,7 @@ def adaptive_block_sums(
                 scene, ray_gen, ix, iy, start + f * spp, spp, key, width,
                 depth, t_min, t_max, sky=sky,
                 lens_draws=not cam.reference_mode, sample_batch=spp,
+                gates=gates,
             )
             sums[f, at] = acc.stacked(-1)
             segs[at] += sg
@@ -273,8 +274,7 @@ class AdaptiveSession:
         self.n_sel = min(n_sel, self.n_blocks)
 
         self.scene = compile_scene(
-            world, spatial_sort=len(world.spheres) > SPATIAL_SORT_MIN,
-            device=self.device,
+            world, spatial_sort=wants_spatial_sort(world), device=self.device,
         )
         if not world.camera.reference_mode:
             self.scene = self.scene._replace(cam=torch.from_numpy(

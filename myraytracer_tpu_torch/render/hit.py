@@ -1,36 +1,76 @@
-"""Batched ray-sphere closest hit.
+"""Batched ray-primitive closest hit.
 
-Port of the sphere part of ``myraytracer_tpu.render.hit``. The reference's
-per-thread linear scan with a shrinking ``t_sup`` window
-(``shader.wgsl:314-329``) becomes a min-reduction over the sphere axis,
-vectorized over all ray lanes, in chunks of spheres so the ``[chunk, rays]``
-intermediates stay bounded at full image size.
+Port of ``myraytracer_tpu.render.hit``. The reference's per-thread linear
+scan with a shrinking ``t_sup`` window (``shader.wgsl:314-329``) becomes a
+min-reduction over the primitive axis, vectorized over all ray lanes, in
+chunks of primitives so the ``[chunk, rays]`` intermediates stay bounded at
+full image size.
 
 Semantics kept from the reference and the JAX package:
 
 * half-b quadratic with ``a = 1`` (ray directions are normalized);
 * nearer root first, the farther root only when the nearer one is outside
   the window;
-* strict ``t < t_best``: on equal t the lowest sphere index wins;
+* strict ``t < t_best``: on equal t the lowest index wins, and spheres are
+  swept before triangles, so a sphere wins an equal-t tie with a triangle;
 * outward normal ``(at - center) * (1 / radius)`` with the signed radius,
-  front-face test ``dot(normal, dir) <= 0`` and the back-face flip.
+  front-face test ``dot(normal, dir) <= 0`` and the back-face flip;
+* triangles (the JAX package's extension of the reference): two-sided
+  Möller-Trumbore, with the geometric normal ``e1 x e2`` normalized by
+  ``rsqrt`` under the same front-face convention.
+
+Gated sweep: ``closest_hit`` with ``gates`` is the plain version of the
+CUDA kernel's sweep (``csrc/trace.cu``), which takes the JAX kernel's
+gates (``myraytracer_tpu/kernels/trace.py:990-1296``): the ``LEADERS``
+largest spheres with no gate, then ``CULL_CHUNK``-sphere chunks, each
+entered by a lane only if its ray meets the chunk's eps-padded box before
+the lane's running closest hit, and from ``SUPER_MIN`` chunks on an outer
+box over every ``SUPER`` chunks tested first with the ``t_best`` from
+before the group; then the triangles, in chunks behind their own boxes,
+against the merged ``t_best``. A lane merges a chunk's candidates only if
+it entered the chunk, so the result is the kernel's lane by lane, even
+where a gate is not conservative (a grazing hit that rounding puts
+outside its box). Without ``gates`` the sweep is ungated: the JAX jnp
+integrator's semantics.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
 from myraytracer_tpu_torch.core.vec import V3
-from myraytracer_tpu_torch.scene.compile import CompiledScene
+from myraytracer_tpu_torch.scene.compile import LEADERS, CompiledScene, CompiledTriangles
+
+TRI_DET_EPS = 1e-9
+# The slab test's box padding and the floor of |direction| it inverts
+# (JAX kernels/trace.py:992-996).
+SLAB_EPS = 1e-4
+DIR_TINY = 1e-30
+
+
+class SweepGates(NamedTuple):
+    """What the gated sweep reads: the JAX kernel's gate decisions and
+    its box tables (``[6, n]`` f32: lo xyz then hi xyz), built by
+    ``kernels.trace.gate_tables``."""
+
+    sph_cull: bool  # spheres after the LEADERS swept behind chunk gates
+    chunk: int  # CULL_CHUNK
+    aabb: torch.Tensor  # [6, n_chunks] sphere chunk boxes
+    saabb: Optional[torch.Tensor]  # [6, n_super] outer boxes, or None
+    tri_cull: bool  # triangles swept behind chunk gates
+    tri_chunk: int  # resolved TRI_CHUNK
+    traabb: torch.Tensor  # [6, tn_chunks]
+    tsaabb: Optional[torch.Tensor]  # [6, tn_super], or None
+    super_w: int  # SUPER: chunks under one outer box
 
 
 class Hit(NamedTuple):
     """Per-lane closest-hit record (analog of shader.wgsl:134-140)."""
 
     t: torch.Tensor  # f32; == t_max where there is no hit
-    idx: torch.Tensor  # int64 sphere index (0 when no hit; see mask)
+    idx: torch.Tensor  # int64 sphere or triangle index (0 when no hit; see mask)
     mask: torch.Tensor  # bool, True = hit something
     point: V3
     normal: V3  # flipped to oppose the ray (shader.wgsl:305-307)
@@ -42,62 +82,273 @@ class Hit(NamedTuple):
 
 
 def _chunk_size(n_prims: int, n_lanes: int) -> int:
-    """Spheres per chunk, bounding each [chunk, lanes] temporary to ~16M
+    """Primitives per chunk, bounding each [chunk, lanes] temporary to ~16M
     f32 elements (64 MB), as the JAX package does."""
     budget = 16 << 20
     c = max(8, min(n_prims, budget // max(1, n_lanes)))
     return max(8, (c // 8) * 8)
 
 
-def _sphere_candidates(
-    o: V3, d: V3, scene: CompiledScene, t_min: float, t_max: float
-) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(t_best, i_best) over all spheres; t_best == t_max on a miss."""
-    n_lanes = o.x.shape[0]
-    n = scene.padded_size
-    dev = o.x.device
-    chunk = _chunk_size(n, n_lanes)
-    t_minf = torch.tensor(t_min, dtype=torch.float32, device=dev)
-    big = torch.tensor(t_max, dtype=torch.float32, device=dev)
+def _sphere_t(o: V3, d: V3, scene: CompiledScene, sl: slice, t_minf, big):
+    """Candidate t of spheres ``sl`` against every lane, [k, lanes];
+    ``big`` (= t_max) where a sphere is missed."""
+    ocx = o.x[None, :] - scene.center.x[sl, None]
+    ocy = o.y[None, :] - scene.center.y[sl, None]
+    ocz = o.z[None, :] - scene.center.z[sl, None]
+    b = ocx * d.x[None, :] + ocy * d.y[None, :] + ocz * d.z[None, :]
+    c = ocx * ocx + ocy * ocy + ocz * ocz - scene.radius_sq[sl, None]
+    disc = b * b - c
+    sq = torch.sqrt(torch.clamp_min(disc, 0.0))
+    t1 = -b - sq
+    t2 = -b + sq
+    t1_ok = (t1 >= t_minf) & (t1 < big)
+    t_cand = torch.where(t1_ok, t1, t2)
+    valid = (disc >= 0.0) & (t_cand >= t_minf) & (t_cand < big)
+    return torch.where(valid, t_cand, big)
 
-    t_best = torch.full((n_lanes,), t_max, dtype=torch.float32, device=dev)
-    i_best = torch.zeros((n_lanes,), dtype=torch.int64, device=dev)
+
+def _triangle_t(o: V3, d: V3, tris: CompiledTriangles, sl: slice, t_minf, big):
+    """Candidate t of triangles ``sl`` against every lane, [k, lanes]
+    (Möller-Trumbore, two-sided; JAX ``hit.py:_mt_candidate``)."""
+    col = lambda a: a[sl, None]  # noqa: E731
+    v0x, v0y, v0z = col(tris.v0.x), col(tris.v0.y), col(tris.v0.z)
+    e1x, e1y, e1z = col(tris.e1.x), col(tris.e1.y), col(tris.e1.z)
+    e2x, e2y, e2z = col(tris.e2.x), col(tris.e2.y), col(tris.e2.z)
+    ox, oy, oz = o.x[None, :], o.y[None, :], o.z[None, :]
+    dx, dy, dz = d.x[None, :], d.y[None, :], d.z[None, :]
+    px = dy * e2z - dz * e2y
+    py = dz * e2x - dx * e2z
+    pz = dx * e2y - dy * e2x
+    det = e1x * px + e1y * py + e1z * pz
+    small = det.abs() < TRI_DET_EPS
+    inv_det = torch.reciprocal(torch.where(small, 1.0, det))
+    tvx = ox - v0x
+    tvy = oy - v0y
+    tvz = oz - v0z
+    u = (tvx * px + tvy * py + tvz * pz) * inv_det
+    qx = tvy * e1z - tvz * e1y
+    qy = tvz * e1x - tvx * e1z
+    qz = tvx * e1y - tvy * e1x
+    v = (dx * qx + dy * qy + dz * qz) * inv_det
+    t_cand = (e2x * qx + e2y * qy + e2z * qz) * inv_det
+    valid = (
+        ~small & (u >= 0.0) & (v >= 0.0) & (u + v <= 1.0)
+        & (t_cand >= t_minf) & (t_cand < big)
+    )
+    return torch.where(valid, t_cand, big)
+
+
+def _first_min(t_cand: torch.Tensor, rows: torch.Tensor):
+    """(smallest t, the lowest row holding it) over dim -2 of ``t_cand``:
+    a first-index-wins min, with no reliance on argmin's tie order.
+    ``rows`` holds the row indices, broadcastable against ``t_cand``."""
+    t_min = torch.amin(t_cand, dim=-2)
+    i_min = torch.where(t_cand == t_min.unsqueeze(-2), rows, torch.iinfo(torch.int64).max)
+    return t_min, i_min.amin(dim=-2)
+
+
+def _sweep(cand, n: int, chunk: int, t_best, i_best):
+    """Merge ``cand(slice)`` candidates of primitives [0, n) into the
+    running (t_best, i_best), ``chunk`` primitives at a time, strict <."""
+    dev = t_best.device
     for base in range(0, n, chunk):
         sl = slice(base, min(n, base + chunk))
-        ocx = o.x[None, :] - scene.center.x[sl, None]
-        ocy = o.y[None, :] - scene.center.y[sl, None]
-        ocz = o.z[None, :] - scene.center.z[sl, None]
-        b = ocx * d.x[None, :] + ocy * d.y[None, :] + ocz * d.z[None, :]
-        c = ocx * ocx + ocy * ocy + ocz * ocz - scene.radius_sq[sl, None]
-        disc = b * b - c
-        sq = torch.sqrt(torch.clamp_min(disc, 0.0))
-        t1 = -b - sq
-        t2 = -b + sq
-        t1_ok = (t1 >= t_minf) & (t1 < big)
-        t_cand = torch.where(t1_ok, t1, t2)
-        valid = (disc >= 0.0) & (t_cand >= t_minf) & (t_cand < big)
-        t_cand = torch.where(valid, t_cand, big)
-        # First-index-wins min over the chunk: the smallest t, then the
-        # lowest row holding it (no reliance on argmin's tie order).
-        t_chunk = torch.amin(t_cand, dim=0)
-        rows = torch.arange(base, sl.stop, device=dev)[:, None]
-        i_chunk = torch.where(t_cand == t_chunk[None, :], rows, n).amin(dim=0)
+        t_chunk, i_chunk = _first_min(
+            cand(sl), torch.arange(base, sl.stop, device=dev)[:, None])
         better = t_chunk < t_best
         t_best = torch.where(better, t_chunk, t_best)
         i_best = torch.where(better, i_chunk, i_best)
     return t_best, i_best
 
 
-def closest_hit(o: V3, d: V3, scene: CompiledScene, t_min: float, t_max: float) -> Hit:
-    """Closest hit for normalized ray directions ``d`` over 1-D lanes."""
-    t_best, idx = _sphere_candidates(o, d, scene, t_min, t_max)
+def _window(o: V3, t_min: float, t_max: float):
+    """``(t_min, t_max)`` as f32 scalars on the lanes' device, and the
+    running ``(t_best, i_best)`` of no hit yet: t_max and 0 per lane."""
+    n_lanes, dev = o.x.shape[0], o.x.device
+    f32 = torch.float32
+    return (torch.tensor(t_min, dtype=f32, device=dev),
+            torch.tensor(t_max, dtype=f32, device=dev),
+            torch.full((n_lanes,), t_max, dtype=f32, device=dev),
+            torch.zeros((n_lanes,), dtype=torch.int64, device=dev))
+
+
+def _sphere_candidates(
+    o: V3, d: V3, scene: CompiledScene, t_min: float, t_max: float
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(t_best, i_best) over all spheres; t_best == t_max on a miss."""
+    t_minf, big, t_best, i_best = _window(o, t_min, t_max)
+    n = scene.padded_size
+    return _sweep(lambda sl: _sphere_t(o, d, scene, sl, t_minf, big),
+                  n, _chunk_size(n, t_best.shape[0]), t_best, i_best)
+
+
+def _triangle_candidates(
+    o: V3, d: V3, tris: CompiledTriangles, t_min: float, t_max: float
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(t_best, i_best) over all triangles; t_best == t_max on a miss."""
+    t_minf, big, t_best, i_best = _window(o, t_min, t_max)
+    n = tris.padded_size
+    # Möller-Trumbore holds about twice the temporaries: half the chunk.
+    return _sweep(lambda sl: _triangle_t(o, d, tris, sl, t_minf, big),
+                  n, _chunk_size(n, 2 * t_best.shape[0]), t_best, i_best)
+
+
+# --- the gated sweep --------------------------------------------------------
+
+
+def _inv_dir(d: V3) -> V3:
+    """1 / d per component, with |d| < DIR_TINY replaced by +DIR_TINY."""
+    inv = lambda a: torch.reciprocal(torch.where(a.abs() < DIR_TINY, DIR_TINY, a))  # noqa: E731
+    return V3(inv(d.x), inv(d.y), inv(d.z))
+
+
+def _slab(box: torch.Tensor, o: V3, iv: V3, t_minf):
+    """Every lane's slab test against every box of ``box`` ([6, nb]):
+    ``(tn, ok)``, both [nb, lanes]. The JAX kernel's test (trace.py:998-1015)
+    enters box c iff ``tn <= min(tf, t_best)``, with ``t_best`` the lane's
+    running closest hit; with no NaN that is ``ok & (tn <= t_best)``, where
+    ``ok`` is ``tn <= tf`` -- so the t_best-free part is computed once."""
+    lo = lambda k, oc, ic: ((box[k][:, None] - SLAB_EPS) - oc[None, :]) * ic[None, :]  # noqa: E731
+    hi = lambda k, oc, ic: ((box[k][:, None] + SLAB_EPS) - oc[None, :]) * ic[None, :]  # noqa: E731
+    tx0, tx1 = lo(0, o.x, iv.x), hi(3, o.x, iv.x)
+    ty0, ty1 = lo(1, o.y, iv.y), hi(4, o.y, iv.y)
+    tz0, tz1 = lo(2, o.z, iv.z), hi(5, o.z, iv.z)
+    mn, mx = torch.minimum, torch.maximum
+    tn = mx(mx(mn(tx0, tx1), mn(ty0, ty1)), mx(mn(tz0, tz1), t_minf))
+    tf = mn(mn(mx(tx0, tx1), mx(ty0, ty1)), mx(tz0, tz1))
+    return tn, tn <= tf
+
+
+def _chunk_minima(cand, lo: int, n: int, width: int, n_chunks: int, n_lanes: int, dev):
+    """Each chunk's first-index minimum, ``(t, i)`` [n_chunks, lanes]: chunk
+    c holds primitives ``[lo + c*width, lo + (c+1)*width)``; those at or
+    past ``n`` (table padding) are misses."""
+    per = max(1, (16 << 20) // max(1, width * n_lanes))  # chunks per batch
+    ts, idx = [], []
+    for c0 in range(0, n_chunks, per):
+        c1 = min(n_chunks, c0 + per)
+        a, b = lo + c0 * width, lo + c1 * width
+        t = cand(slice(a, min(b, n)))
+        if t.shape[0] < b - a:
+            t = torch.cat([t, t.new_full((b - a - t.shape[0], n_lanes), float("inf"))])
+        rows = torch.arange(a, b, device=dev).view(c1 - c0, width, 1)
+        tc, ic = _first_min(t.view(c1 - c0, width, n_lanes), rows)
+        ts.append(tc)
+        idx.append(ic)
+    return torch.cat(ts), torch.cat(idx)
+
+
+def _gated_merge(t_best, i_best, won, t_c, i_c, tn_c, ok_c, tn_s, ok_s, super_w):
+    """Merge chunk minima into the running hit, chunk by chunk, each behind
+    its gate (and its outer gate, when ``tn_s`` is given). ``won`` marks
+    the lanes any chunk improved."""
+    n_chunks = t_c.shape[0]
+
+    def merge(c, t_best, i_best, won, outer):
+        enter = ok_c[c] & (tn_c[c] <= t_best)
+        if outer is not None:
+            enter = enter & outer
+        better = enter & (t_c[c] < t_best)
+        return (torch.where(better, t_c[c], t_best),
+                torch.where(better, i_c[c], i_best), won | better)
+
+    if tn_s is None:
+        for c in range(n_chunks):
+            t_best, i_best, won = merge(c, t_best, i_best, won, None)
+        return t_best, i_best, won
+    for sc in range(tn_s.shape[0]):
+        enter_s = ok_s[sc] & (tn_s[sc] <= t_best)  # t_best before the group
+        for c in range(sc * super_w, min((sc + 1) * super_w, n_chunks)):
+            t_best, i_best, won = merge(c, t_best, i_best, won, enter_s)
+    return t_best, i_best, won
+
+
+def _gated_candidates(cand, n, lo, width, box, sbox, super_w, o, iv, t_minf,
+                      t_best, i_best):
+    """The gated part of one table: chunks of ``width`` from ``lo``, behind
+    ``box`` (and ``sbox`` outer boxes), merged into (t_best, i_best).
+    Returns (t_best, i_best, won)."""
+    n_lanes, dev = t_best.shape[0], t_best.device
+    n_chunks = box.shape[1]
+    won = torch.zeros_like(t_best, dtype=torch.bool)
+    if n_chunks == 0:
+        return t_best, i_best, won
+    t_c, i_c = _chunk_minima(cand, lo, n, width, n_chunks, n_lanes, dev)
+    tn_c, ok_c = _slab(box, o, iv, t_minf)
+    tn_s = ok_s = None
+    if sbox is not None:
+        tn_s, ok_s = _slab(sbox, o, iv, t_minf)
+    return _gated_merge(t_best, i_best, won, t_c, i_c, tn_c, ok_c, tn_s, ok_s, super_w)
+
+
+def _sphere_candidates_gated(o: V3, d: V3, scene: CompiledScene, gates: SweepGates,
+                             t_min: float, t_max: float):
+    """(t_best, i_best) over all spheres, leaders first and then chunk by
+    chunk behind the gates; equal to the CUDA kernel's gated sweep."""
+    t_minf, big, t_best, i_best = _window(o, t_min, t_max)
+    cand = lambda sl: _sphere_t(o, d, scene, sl, t_minf, big)  # noqa: E731
+    t_best, i_best = _sweep(cand, LEADERS, LEADERS, t_best, i_best)
+    t_best, i_best, _ = _gated_candidates(
+        cand, scene.padded_size, LEADERS, gates.chunk, gates.aabb,
+        gates.saabb, gates.super_w, o, _inv_dir(d), t_minf, t_best, i_best)
+    return t_best, i_best
+
+
+def _triangle_candidates_gated(o: V3, d: V3, tris: CompiledTriangles, gates: SweepGates,
+                               t_sphere: torch.Tensor, t_min: float, t_max: float):
+    """The triangles chunk by chunk behind their gates, after the spheres:
+    the running t_best starts at the spheres' ``t_sphere``. Returns (t,
+    i_best, tri_wins): ``tri_wins`` marks the lanes a triangle improved."""
+    t_minf, big, _, i_best = _window(o, t_min, t_max)
+    cand = lambda sl: _triangle_t(o, d, tris, sl, t_minf, big)  # noqa: E731
+    return _gated_candidates(
+        cand, tris.padded_size, 0, gates.tri_chunk, gates.traabb, gates.tsaabb,
+        gates.super_w, o, _inv_dir(d), t_minf, t_sphere, i_best)
+
+
+def closest_hit(o: V3, d: V3, scene: CompiledScene, t_min: float, t_max: float,
+                gates: Optional[SweepGates] = None) -> Hit:
+    """Closest hit for normalized ray directions ``d`` over 1-D lanes;
+    behind the kernel's gates when ``gates`` is given."""
+    if gates is not None and gates.sph_cull:
+        ts, is_ = _sphere_candidates_gated(o, d, scene, gates, t_min, t_max)
+    else:
+        ts, is_ = _sphere_candidates(o, d, scene, t_min, t_max)
+    tri_wins = None
+    t_best = ts
+    if scene.has_triangles:
+        if gates is not None and gates.tri_cull:
+            tt, it, tri_wins = _triangle_candidates_gated(
+                o, d, scene.tris, gates, ts, t_min, t_max)
+        else:
+            tt, it = _triangle_candidates(o, d, scene.tris, t_min, t_max)
+            tri_wins = tt < ts  # spheres first: an equal-t triangle loses
+        t_best = torch.where(tri_wins, tt, ts)
     mask = t_best < t_max
     point = o + d * t_best
 
     # One denormalized fetch of the winner's record.
-    take = lambda a: a[idx]  # noqa: E731
+    take = lambda a: a[is_]  # noqa: E731
     center = V3(take(scene.center.x), take(scene.center.y), take(scene.center.z))
     normal = (point - center) * torch.reciprocal(take(scene.radius))
+    mat_ty = take(scene.mat_ty)
+    albedo = V3(take(scene.albedo.x), take(scene.albedo.y), take(scene.albedo.z))
+    fuzz, ior, idx = take(scene.fuzz), take(scene.ior), is_
+    if tri_wins is not None:
+        tr = scene.tris
+        tk = lambda a: a[it]  # noqa: E731
+        e1 = V3(tk(tr.e1.x), tk(tr.e1.y), tk(tr.e1.z))
+        e2 = V3(tk(tr.e2.x), tk(tr.e2.y), tk(tr.e2.z))
+        gn = e1.cross(e2)
+        # Guarded: lanes that hit no triangle gather an arbitrary row.
+        t_normal = gn * torch.rsqrt(torch.clamp_min(gn.length_sq(), 1e-30))
+        normal = V3.where(tri_wins, t_normal, normal)
+        mat_ty = torch.where(tri_wins, tk(tr.mat_ty), mat_ty)
+        albedo = V3.where(tri_wins, V3(tk(tr.albedo.x), tk(tr.albedo.y),
+                                       tk(tr.albedo.z)), albedo)
+        fuzz = torch.where(tri_wins, tk(tr.fuzz), fuzz)
+        ior = torch.where(tri_wins, tk(tr.ior), ior)
+        idx = torch.where(tri_wins, it, is_)
     front = normal.dot(d) <= 0.0  # shader.wgsl:303
     normal = V3.where(front, normal, -normal)
     return Hit(
@@ -107,8 +358,8 @@ def closest_hit(o: V3, d: V3, scene: CompiledScene, t_min: float, t_max: float) 
         point=point,
         normal=normal,
         front_face=front,
-        mat_ty=take(scene.mat_ty),
-        albedo=V3(take(scene.albedo.x), take(scene.albedo.y), take(scene.albedo.z)),
-        fuzz=take(scene.fuzz),
-        ior=take(scene.ior),
+        mat_ty=mat_ty,
+        albedo=albedo,
+        fuzz=fuzz,
+        ior=ior,
     )

@@ -1,10 +1,13 @@
 """The wavefront integrator in plain PyTorch: the port's oracle.
 
 Port of ``myraytracer_tpu.render.integrator`` for the slice the CUDA
-kernel covers (spheres; Lambertian, Metal, Dielectric; gradient or
-constant sky; threefry camera draws). It is the plain version of the
-kernel in ``kernels/trace.py``: the kernel runs it for CPU tensors, and
-``chip_smoke.py`` holds the kernel against it on the card.
+kernel covers (spheres and triangle meshes; Lambertian, Metal, Dielectric;
+gradient or constant sky; threefry camera draws). It is the plain version
+of the kernel in ``kernels/trace.py``: the kernel runs it for CPU tensors,
+and ``chip_smoke.py`` holds the kernel against it on the card. With
+``gates`` (``render.hit.SweepGates``) the closest-hit sweep takes the
+kernel's gates; without, it is the ungated sweep of the JAX jnp
+integrator.
 
 The reference's per-pixel bounce loop (``shader.wgsl:336-358``) becomes a
 loop over bounces on a batch of lanes:
@@ -33,7 +36,7 @@ import torch
 from myraytracer_tpu_torch.core import rng as crng
 from myraytracer_tpu_torch.core.vec import V3
 from myraytracer_tpu_torch.render import camera as cam_mod
-from myraytracer_tpu_torch.render.hit import closest_hit
+from myraytracer_tpu_torch.render.hit import SweepGates, closest_hit
 from myraytracer_tpu_torch.render.materials import color_sky, scatter
 from myraytracer_tpu_torch.scene import api
 from myraytracer_tpu_torch.scene.api import Camera
@@ -89,6 +92,7 @@ def trace(
     t_min: float,
     t_max: float,
     sky=None,
+    gates: Optional[SweepGates] = None,
 ) -> Tuple[V3, torch.Tensor]:
     """Trace normalized rays (1-D lanes) to completion.
 
@@ -112,7 +116,7 @@ def trace(
         if live.numel() == 0:
             break
         segs[live] += 1
-        hit = closest_hit(o, d, scene, t_min, t_max)
+        hit = closest_hit(o, d, scene, t_min, t_max, gates)
 
         # Miss → attenuation * sky, retire (shader.wgsl:343-345). A lane
         # gathers radiance at most once, so the oracle's ``0 + x`` is ``x``.
@@ -169,6 +173,7 @@ def render_sample_batch(
     t_max: float,
     sky=None,
     lens_draws: bool = True,
+    gates: Optional[SweepGates] = None,
 ) -> Tuple[V3, torch.Tensor]:
     """Camera-generate and trace one batch of (pixel, sample) lanes.
 
@@ -183,7 +188,8 @@ def render_sample_batch(
     else:
         l1 = l2 = torch.zeros_like(u1)
     o, d = ray_gen(ix, iy, u1, u2, l1, l2)
-    return trace(o, d, lane_id, sample_id, key, scene, depth, t_min, t_max, sky=sky)
+    return trace(o, d, lane_id, sample_id, key, scene, depth, t_min, t_max, sky=sky,
+                 gates=gates)
 
 
 def ray_generator(cam: Camera, width: int, height: int,
@@ -213,6 +219,7 @@ def pixel_sums(
     sky=None,
     lens_draws: bool = True,
     sample_batch: int = 1,
+    gates: Optional[SweepGates] = None,
 ) -> Tuple[V3, torch.Tensor]:
     """Radiance sums and segment counts of 1-D pixel lanes ``(ix, iy)``
     over sample indices ``[sample_start, sample_start + n_samples)``.
@@ -240,6 +247,7 @@ def pixel_sums(
             lane_id.expand(k, n).reshape(-1),
             sample_id.reshape(-1),
             key, depth, t_min, t_max, sky=sky, lens_draws=lens_draws,
+            gates=gates,
         )
         rad = V3(*(c.view(k, n) for c in rad))
         for r in range(k):
@@ -265,6 +273,7 @@ def make_block_renderer(
     qmc: bool = False,
     rr: int = 0,
     frames: int = 1,
+    gates: Optional[SweepGates] = None,
 ):
     """Build the composable rendering primitive.
 
@@ -281,6 +290,9 @@ def make_block_renderer(
     + f*max_samples, sample_start + (f+1)*max_samples)``. Each frame is a
     one-frame block call of its own, so it is bitwise that call; the
     segment counts are totals over the K frames.
+
+    ``gates`` (the scene's, from ``kernels.trace.gate_tables``) makes the
+    closest-hit sweep the CUDA kernel's gated sweep.
     """
     check_supported(material_set, nee_lights, texture_set, qmc, rr)
     frames = int(frames)
@@ -294,6 +306,7 @@ def make_block_renderer(
             pix % width, pix // width + int(row0), int(sample_start),
             int(n_valid), key, width, ray_depth, t_min, t_max, sky=sky,
             lens_draws=not cam.reference_mode, sample_batch=sample_batch,
+            gates=gates,
         )
         img_sum = acc.stacked(-1).view(n_rows, width, 3)
         return img_sum, segs.to(torch.float32).view(n_rows, width)

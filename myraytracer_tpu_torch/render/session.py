@@ -32,13 +32,20 @@ from myraytracer_tpu_torch.core import rng as crng
 from myraytracer_tpu_torch.render.camera import pack_camera
 from myraytracer_tpu_torch.render.integrator import make_renderer
 from myraytracer_tpu_torch.scene import api
-from myraytracer_tpu_torch.scene.compile import compile_scene
+from myraytracer_tpu_torch.scene.compile import SCENE_LEAVES, compile_scene, leaf
 
 CHECKPOINT_VERSION = 3
 
-# Spheres above which the compiler sorts the scene spatially, as the JAX
-# session does; the order decides equal-t ties, so it must match.
+# Spheres or triangles above which the compiler sorts the scene spatially,
+# as the JAX session does; the order decides equal-t ties, so it must match.
 SPATIAL_SORT_MIN = 64
+
+
+def wants_spatial_sort(world: api.World) -> bool:
+    """The JAX sessions' rule (``render/session.py:118``,
+    ``render/adaptive.py:336``): sort when either table passes 64."""
+    return (len(world.spheres) > SPATIAL_SORT_MIN
+            or world.triangle_count > SPATIAL_SORT_MIN)
 
 
 def fma_f32(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
@@ -79,17 +86,16 @@ def scene_fingerprint(scene) -> str:
     """Content hash of the compiled scene's tensors (not the camera).
 
     Hashes the same leaves in the same order, dtype and shape as the JAX
-    package's ``scene_fingerprint``, so one world gives one fingerprint in
-    both packages.
+    package's ``scene_fingerprint`` (its pytree order: the sphere leaves,
+    then a mesh scene's triangle leaves), so one world gives one
+    fingerprint in both packages.
     """
     h = hashlib.sha256()
-    leaves = [
-        scene.center.x, scene.center.y, scene.center.z, scene.radius,
-        scene.radius_sq, scene.albedo.x, scene.albedo.y, scene.albedo.z,
-        scene.fuzz, scene.ior, scene.mat_ty,
-    ]
-    for leaf in leaves:
-        arr = leaf.detach().cpu().numpy()
+    for name in SCENE_LEAVES:
+        t = leaf(scene, name)
+        if t is None:
+            continue
+        arr = t.detach().cpu().numpy()
         h.update(str(arr.dtype).encode())
         h.update(str(arr.shape).encode())
         h.update(arr.tobytes())
@@ -133,8 +139,7 @@ class RenderSession:
         self.backend_resolved = resolved
         self.device = torch.device("cuda" if resolved == "cuda" else "cpu")
         self.scene = compile_scene(
-            world, spatial_sort=len(world.spheres) > SPATIAL_SORT_MIN,
-            device=self.device,
+            world, spatial_sort=wants_spatial_sort(world), device=self.device,
         )
         if not world.camera.reference_mode:
             # The packed runtime camera: set_camera swaps it, and the

@@ -1,8 +1,8 @@
-"""Scene compiler: API World → SoA tensors (spheres).
+"""Scene compiler: API World → SoA tensors (spheres and triangles).
 
-Port of the sphere part of ``myraytracer_tpu.scene.compile``. Every
-sphere row carries its own material parameters (albedo, fuzz, ior, type)
-beside its geometry, so one index fetches the whole hit record.
+Port of ``myraytracer_tpu.scene.compile``. Every sphere and triangle row
+carries its own material parameters (albedo, fuzz, ior, type) beside its
+geometry, so one index fetches the whole hit record.
 
 Padding: the sphere tensors are padded to a multiple of ``SPHERE_PAD``
 with ``radius_sq = -1`` slots. For a normalized ray direction,
@@ -13,9 +13,14 @@ Cauchy-Schwarz gives ``b^2 = (oc·d)^2 <= |oc|^2``, so the discriminant
 Morton curve, the ``LEADERS`` largest spheres hoisted to the front, the
 rest in kd-partitioned chunks). The order decides which sphere wins an
 equal-t tie, so the port must build the same order for the same image.
+Triangles past 64 are sorted by centroid into kd groups of the kernel's
+triangle chunk width (``TRI_CHUNK_AUTO``) in the same way.
 
-Triangle meshes and textures are not in the port yet: a world with either
-raises ``NotImplementedError``.
+Triangle rows are ``v0`` and the edges ``e1 = v1 - v0``, ``e2 = v2 - v0``;
+padding slots have zero edges, so their Möller-Trumbore determinant is 0
+and they never hit. The JAX package's optional triangle BVH (built by its
+native module) is not in the port, and textures are not either: a world
+with a textured material raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -36,6 +41,23 @@ SPHERE_PAD = 8
 LEADERS = 8
 
 
+class CompiledTriangles(NamedTuple):
+    """SoA triangle tensors, each [T] on the scene's device; padding slots
+    have zero edges (degenerate: they never hit)."""
+
+    v0: V3  # [T] f32 each
+    e1: V3  # v1 - v0
+    e2: V3  # v2 - v0
+    albedo: V3
+    fuzz: torch.Tensor
+    ior: torch.Tensor
+    mat_ty: torch.Tensor  # i32
+
+    @property
+    def padded_size(self) -> int:
+        return self.fuzz.shape[0]
+
+
 class CompiledScene(NamedTuple):
     """SoA scene tensors; every field is a length-N tensor on one device.
 
@@ -51,6 +73,7 @@ class CompiledScene(NamedTuple):
     fuzz: torch.Tensor  # [N] f32 (Metal fuzz; 0 otherwise)
     ior: torch.Tensor  # [N] f32 (Dielectric index; 1 otherwise)
     mat_ty: torch.Tensor  # [N] i32 (0 pad, 1 lambertian, 2 metal, 3 dielectric)
+    tris: Optional[CompiledTriangles] = None
     # Optional packed runtime camera ([19] f32, render.camera.pack_camera):
     # when set, a general-mode renderer reads the thin-lens basis from it
     # instead of its construction-time camera.
@@ -64,13 +87,33 @@ class CompiledScene(NamedTuple):
     def device(self) -> torch.device:
         return self.radius.device
 
+    @property
+    def has_triangles(self) -> bool:
+        return self.tris is not None
 
-# The names of the JAX ``CompiledScene`` leaves a spheres-only scene has,
-# in its pytree order (the order ``scene_fingerprint`` hashes).
-SCENE_LEAVES = (
+
+# The names of the JAX ``CompiledScene`` leaves, in its pytree order (the
+# order ``scene_fingerprint`` hashes): the sphere leaves every scene has,
+# then the triangle leaves a scene with meshes has.
+SPHERE_LEAVES = (
     "center.x", "center.y", "center.z", "radius", "radius_sq",
     "albedo.x", "albedo.y", "albedo.z", "fuzz", "ior", "mat_ty",
 )
+TRIANGLE_LEAVES = tuple(
+    f"tris.{v}.{c}" for v in ("v0", "e1", "e2") for c in "xyz"
+) + ("tris.albedo.x", "tris.albedo.y", "tris.albedo.z",
+     "tris.fuzz", "tris.ior", "tris.mat_ty")
+SCENE_LEAVES = SPHERE_LEAVES + TRIANGLE_LEAVES
+
+
+def leaf(scene, name: str):
+    """The leaf ``name`` (e.g. ``"tris.v0.x"``) of a compiled scene of
+    either package, or None where the scene has no such part."""
+    for part in name.split("."):
+        if scene is None:
+            return None
+        scene = getattr(scene, part)
+    return scene
 
 
 def _pad(a: np.ndarray, n: int, fill) -> np.ndarray:
@@ -165,6 +208,72 @@ def sphere_order(world: api.World, partition: str = "kd",
     return order
 
 
+# The kernel's triangle chunk widths by triangle count (the JAX package's
+# ladder; ``config.resolve_tri_chunk`` reads it): the kd partition aligns
+# triangle groups to the width the kernel gates at.
+TRI_CHUNK_AUTO = ((768, 64), (8192, 32), (None, 16))
+
+
+def _auto_tri_chunk(n_tris: int) -> int:
+    for bound, chunk in TRI_CHUNK_AUTO:
+        if bound is None or n_tris <= bound:
+            return chunk
+    return TRI_CHUNK_AUTO[-1][1]
+
+
+def _compile_triangles(meshes, pad_to: int, spatial_sort: bool,
+                       partition: str = "kd") -> Dict[str, np.ndarray]:
+    """The triangle leaves (``TRIANGLE_LEAVES``) of ``meshes`` as numpy
+    arrays, padded to a multiple of ``pad_to`` with zero-edge slots; past
+    64 triangles, ``spatial_sort`` orders them by centroid as the JAX
+    package does (``kd`` groups of the auto chunk width, or Morton)."""
+    t = sum(len(m) for m in meshes)
+    tpad = max(pad_to, -(-max(t, 1) // pad_to) * pad_to)
+    v0 = np.zeros((t, 3), np.float32)
+    e1 = np.zeros((t, 3), np.float32)
+    e2 = np.zeros((t, 3), np.float32)
+    albedo = np.zeros((t, 3), np.float32)
+    fuzz = np.zeros((t,), np.float32)
+    ior = np.ones((t,), np.float32)
+    mat_ty = np.zeros((t,), np.int32)
+    k = 0
+    for mesh in meshes:
+        verts = np.asarray(mesh.vertices, np.float32)
+        alb, fz, io, ty = _material_row(mesh.material)
+        tri = np.asarray(mesh.triangles, np.int32).reshape(-1, 3)
+        n_m = tri.shape[0]
+        if n_m == 0:
+            continue
+        a = verts[tri[:, 0]]
+        v0[k:k + n_m] = a
+        e1[k:k + n_m] = verts[tri[:, 1]] - a
+        e2[k:k + n_m] = verts[tri[:, 2]] - a
+        albedo[k:k + n_m] = alb
+        fuzz[k:k + n_m] = fz
+        ior[k:k + n_m] = io
+        mat_ty[k:k + n_m] = ty
+        k += n_m
+
+    if spatial_sort and t > 64:
+        cent = v0 + (e1 + e2) / 3.0
+        if partition == "kd":
+            order = kd_chunk_order(cent, _auto_tri_chunk(t))
+        else:
+            order = morton_order(cent)
+        v0, e1, e2, albedo = v0[order], e1[order], e2[order], albedo[order]
+        fuzz, ior, mat_ty = fuzz[order], ior[order], mat_ty[order]
+
+    out = {}
+    for name, a in (("v0", v0), ("e1", e1), ("e2", e2), ("albedo", albedo)):
+        a = _pad(a, tpad, 0.0)  # zero-edge padding is degenerate: never hits
+        for j, c in enumerate("xyz"):
+            out[f"tris.{name}.{c}"] = a[:, j]
+    out["tris.fuzz"] = _pad(fuzz, tpad, 0.0)
+    out["tris.ior"] = _pad(ior, tpad, 1.0)
+    out["tris.mat_ty"] = _pad(mat_ty, tpad, api.MATERIAL_NONE)
+    return out
+
+
 def compile_scene(
     world: api.World,
     pad_to: int = SPHERE_PAD,
@@ -173,15 +282,12 @@ def compile_scene(
     partition_chunk: int = 48,
     device="cpu",
 ) -> CompiledScene:
-    """Flatten a spheres-only api.World into padded SoA tensors on ``device``.
+    """Flatten an api.World into padded SoA tensors on ``device``.
 
     ``spatial_sort``, ``partition`` and ``partition_chunk`` order the
-    spheres as the JAX ``compile_scene`` does with the same arguments.
+    spheres and triangles as the JAX ``compile_scene`` does with the same
+    arguments (and no triangle BVH).
     """
-    if world.meshes:
-        raise NotImplementedError(
-            "triangle meshes are not supported by the PyTorch port yet"
-        )
     if world.texture_set:
         raise NotImplementedError(
             "textured materials are not supported by the PyTorch port yet"
@@ -207,46 +313,57 @@ def compile_scene(
     radius_sq = radius * radius
     center_p = _pad(center, npad, 0.0)
     albedo_p = _pad(albedo, npad, 0.0)
-    return scene_from_numpy(
-        {
-            "center.x": center_p[:, 0],
-            "center.y": center_p[:, 1],
-            "center.z": center_p[:, 2],
-            "radius": _pad(radius, npad, 1.0),
-            "radius_sq": _pad(radius_sq, npad, -1.0),
-            "albedo.x": albedo_p[:, 0],
-            "albedo.y": albedo_p[:, 1],
-            "albedo.z": albedo_p[:, 2],
-            "fuzz": _pad(fuzz, npad, 0.0),
-            "ior": _pad(ior, npad, 1.0),
-            "mat_ty": _pad(mat_ty, npad, api.MATERIAL_NONE),
-        },
-        device=device,
-    )
+    arrays = {
+        "center.x": center_p[:, 0],
+        "center.y": center_p[:, 1],
+        "center.z": center_p[:, 2],
+        "radius": _pad(radius, npad, 1.0),
+        "radius_sq": _pad(radius_sq, npad, -1.0),
+        "albedo.x": albedo_p[:, 0],
+        "albedo.y": albedo_p[:, 1],
+        "albedo.z": albedo_p[:, 2],
+        "fuzz": _pad(fuzz, npad, 0.0),
+        "ior": _pad(ior, npad, 1.0),
+        "mat_ty": _pad(mat_ty, npad, api.MATERIAL_NONE),
+    }
+    if world.meshes:
+        arrays.update(_compile_triangles(world.meshes, pad_to, spatial_sort, partition))
+    return scene_from_numpy(arrays, device=device)
 
 
 def scene_from_numpy(arrays: Dict[str, np.ndarray], device="cpu") -> CompiledScene:
     """Build the port's scene from a compiled scene's arrays.
 
-    ``arrays`` maps each name of ``SCENE_LEAVES`` (and optionally ``"cam"``,
-    the [19] packed camera) to a numpy array: the leaves of a JAX
-    ``CompiledScene`` carry across unchanged, so the same compiled world
-    can be rendered by both packages.
+    ``arrays`` maps each name of ``SPHERE_LEAVES``, and for a scene with
+    meshes each of ``TRIANGLE_LEAVES`` (and optionally ``"cam"``, the [19]
+    packed camera), to a numpy array: the leaves of a JAX ``CompiledScene``
+    carry across unchanged, so the same compiled world can be rendered by
+    both packages.
     """
-    missing = [k for k in SCENE_LEAVES if k not in arrays]
+    has_tris = any(k in arrays for k in TRIANGLE_LEAVES)
+    missing = [k for k in (SCENE_LEAVES if has_tris else SPHERE_LEAVES) if k not in arrays]
     if missing:
         raise KeyError(f"scene arrays lack {missing}")
     # np.array copies: the scene owns its memory whatever the caller holds.
     t = lambda k, dt: torch.from_numpy(np.array(arrays[k], dtype=dt)).to(device)  # noqa: E731
     f32 = np.float32
+    v3 = lambda p: V3(t(f"{p}x", f32), t(f"{p}y", f32), t(f"{p}z", f32))  # noqa: E731
+    tris = None
+    if has_tris:
+        tris = CompiledTriangles(
+            v0=v3("tris.v0."), e1=v3("tris.e1."), e2=v3("tris.e2."),
+            albedo=v3("tris.albedo."), fuzz=t("tris.fuzz", f32),
+            ior=t("tris.ior", f32), mat_ty=t("tris.mat_ty", np.int32),
+        )
     cam = arrays.get("cam")
     return CompiledScene(
-        center=V3(t("center.x", f32), t("center.y", f32), t("center.z", f32)),
+        center=v3("center."),
         radius=t("radius", f32),
         radius_sq=t("radius_sq", f32),
-        albedo=V3(t("albedo.x", f32), t("albedo.y", f32), t("albedo.z", f32)),
+        albedo=v3("albedo."),
         fuzz=t("fuzz", f32),
         ior=t("ior", f32),
         mat_ty=t("mat_ty", np.int32),
+        tris=tris,
         cam=None if cam is None else t("cam", f32),
     )

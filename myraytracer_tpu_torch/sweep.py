@@ -35,7 +35,7 @@ from myraytracer_tpu_torch.render.adaptive import (
     AdaptiveSession, _block_scores, select_blocks,
 )
 from myraytracer_tpu_torch.render.camera import pack_camera
-from myraytracer_tpu_torch.render.session import SPATIAL_SORT_MIN
+from myraytracer_tpu_torch.render.session import wants_spatial_sort
 from myraytracer_tpu_torch.scene.compile import compile_scene
 from myraytracer_tpu_torch.scene.presets import get_scene
 
@@ -57,8 +57,7 @@ def scene_args(name: str, width: int, height: int, device):
     """(compiled scene on ``device``, packed camera or None, sky) as the
     session builds them."""
     world = get_scene(name)
-    scene = compile_scene(world, spatial_sort=len(world.spheres) > SPATIAL_SORT_MIN,
-                          device=device)
+    scene = compile_scene(world, spatial_sort=wants_spatial_sort(world), device=device)
     cam = None
     if not world.camera.reference_mode:
         cam = torch.from_numpy(pack_camera(world.camera, width, height)).to(device)
@@ -83,13 +82,14 @@ def frame_ms(k: int):
     """The uniform kernel on the final scene at spp 1 with ``k`` frames a
     launch, about 64 frames in all: (ms per frame, Mrays/s)."""
     scene, cam, sky = scene_args("final", WIDTH, HEIGHT, "cuda")
+    tables = trace.gate_tables(scene)
     key = crng.key_from_seed(0)
     launches = max(1, 64 // k)
     segs = []
 
     def launch():
         _, s = trace.trace_spheres(scene, cam, key, WIDTH, HEIGHT, 0, HEIGHT, 0, 1,
-                                   DEPTH, 1e-3, 1e4, sky, frames=k)
+                                   DEPTH, 1e-3, 1e4, sky, frames=k, tables=tables)
         segs.append(s)
 
     ms = cuda_ms(launch, launches)

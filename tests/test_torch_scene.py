@@ -15,12 +15,15 @@ from myraytracer_tpu.render.camera import pack_camera as jpack_camera
 from myraytracer_tpu.render.session import scene_fingerprint as jfingerprint
 from myraytracer_tpu.scene import presets as jpresets
 from myraytracer_tpu.scene.compile import compile_scene as jcompile
+from myraytracer_tpu_torch.config import RenderConfig
+from myraytracer_tpu_torch.render.session import RenderSession
 from myraytracer_tpu_torch.render.session import scene_fingerprint as tfingerprint
 from myraytracer_tpu_torch.scene import api as tapi
 from myraytracer_tpu_torch.scene import presets as tpresets
 from myraytracer_tpu_torch.scene.compile import (
     SCENE_LEAVES,
     compile_scene as tcompile,
+    leaf,
     scene_from_numpy,
 )
 
@@ -39,25 +42,18 @@ def _describe(obj):
 
 
 def jax_leaves(scene):
-    """The JAX CompiledScene's sphere leaves as a dict of numpy arrays."""
-    out = {}
-    for name in SCENE_LEAVES:
-        v = scene
-        for part in name.split("."):
-            v = getattr(v, part)
-        out[name] = np.asarray(v)
+    """The JAX CompiledScene's sphere (and triangle) leaves as a dict of
+    numpy arrays."""
+    out = {name: np.asarray(leaf(scene, name)) for name in SCENE_LEAVES
+           if leaf(scene, name) is not None}
     if scene.cam is not None:
         out["cam"] = np.asarray(scene.cam)
     return out
 
 
 def port_leaves(scene):
-    out = {}
-    for name in SCENE_LEAVES:
-        v = scene
-        for part in name.split("."):
-            v = getattr(v, part)
-        out[name] = v.numpy()
+    out = {name: leaf(scene, name).numpy() for name in SCENE_LEAVES
+           if leaf(scene, name) is not None}
     if scene.cam is not None:
         out["cam"] = scene.cam.numpy()
     return out
@@ -76,6 +72,12 @@ def test_presets_build_the_same_world(name):
     ("final", False),
     ("final", True),
     ("spheres:4", True),
+    # Triangles: the kd centroid sort past 64 triangles, and the
+    # fingerprint over the triangle leaves.
+    ("mesh", False),
+    ("mesh", True),
+    ("mesh:1", False),
+    ("mesh:1", True),
 ])
 def test_compile_scene_bitwise(name, spatial_sort):
     want = jax_leaves(jcompile(jpresets.get_scene(name), spatial_sort=spatial_sort))
@@ -110,10 +112,42 @@ def test_scene_from_numpy_round_trips_a_jax_scene():
         scene_from_numpy({k: v for k, v in arrays.items() if k != "ior"})
 
 
-@pytest.mark.parametrize("name", ["mesh", "cornell", "texture", "earth"])
-def test_unsupported_worlds_raise(name):
-    with pytest.raises(NotImplementedError):
-        tcompile(tpresets.get_scene(name))
+@pytest.mark.parametrize("name", ["mesh", "cornell"])
+def test_scene_from_numpy_round_trips_a_jax_mesh_scene(name):
+    """The triangle leaves carry across too, and lacking one is an error."""
+    arrays = jax_leaves(jcompile(jpresets.get_scene(name), spatial_sort=True))
+    assert "tris.v0.x" in arrays
+    scene = scene_from_numpy(arrays)
+    assert scene.has_triangles and scene.tris.mat_ty.dtype == torch.int32
+    got = port_leaves(scene)
+    assert got.keys() == arrays.keys()
+    for k in arrays:
+        np.testing.assert_array_equal(got[k], arrays[k], err_msg=k)
+    with pytest.raises(KeyError):
+        scene_from_numpy({k: v for k, v in arrays.items() if k != "tris.e2.y"})
+
+
+@pytest.mark.parametrize("name,refused_by", [
+    ("mesh", None),  # triangle meshes compile and render
+    # Quads with a DiffuseLight: the mesh compiles, and the session refuses
+    # the emission (integrator.check_supported).
+    ("cornell", "session"),
+    ("texture", "compile"),
+    ("earth", "compile"),
+], ids=["mesh", "cornell", "texture", "earth"])
+def test_unsupported_worlds_raise(name, refused_by):
+    world = tpresets.get_scene(name)
+    if refused_by == "compile":
+        with pytest.raises(NotImplementedError):
+            tcompile(world)
+        return
+    scene = tcompile(world)
+    assert scene.has_triangles and scene.tris.padded_size >= world.triangle_count
+    if refused_by == "session":
+        with pytest.raises(NotImplementedError, match="emissive"):
+            RenderSession(world, RenderConfig(width=8, height=8, ray_depth=2))
+    else:
+        RenderSession(world, RenderConfig(width=8, height=8, ray_depth=2)).step()
 
 
 def test_obj_scene_raises():

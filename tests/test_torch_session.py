@@ -162,7 +162,35 @@ def test_cuda_renderer_refuses_unsupported_features(kw):
         ktrace.make_renderer(**args)
 
 
-@pytest.mark.parametrize("name", ["mesh", "texture", "light"])
+# ``mesh`` renders since triangles were ported; ``cornell`` (quads with a
+# DiffuseLight) compiles and is refused for its emission.
+@pytest.mark.parametrize("name", ["cornell", "texture", "light"])
 def test_sessions_refuse_unsupported_scenes(name):
     with pytest.raises(NotImplementedError):
         dispatch.make_session(presets.get_scene(name), CFG)
+
+
+@pytest.mark.parametrize("name", ["mesh", "final"])
+def test_sessions_sort_and_fingerprint_as_the_jax_sessions(name):
+    """Past 64 spheres or 64 triangles both packages' uniform and adaptive
+    sessions compile the world spatially sorted (the order decides equal-t
+    ties and the kernel's chunk boxes), and one world gives one checkpoint
+    fingerprint."""
+    from myraytracer_tpu.config import RenderConfig as JConfig
+    from myraytracer_tpu.render.adaptive import AdaptiveSession as JAdaptive
+    from myraytracer_tpu.render.session import RenderSession as JSession
+    from myraytracer_tpu.render.session import scene_fingerprint as jfingerprint
+    from myraytracer_tpu.scene import presets as jpresets
+    from myraytracer_tpu.scene.compile import compile_scene as jcompile
+    from myraytracer_tpu_torch.render.adaptive import AdaptiveSession
+    from myraytracer_tpu_torch.render.session import scene_fingerprint, wants_spatial_sort
+
+    jworld, world = jpresets.get_scene(name), presets.get_scene(name)
+    assert wants_spatial_sort(world)
+    sorted_fp = jfingerprint(jcompile(jworld, spatial_sort=True))
+    assert sorted_fp != jfingerprint(jcompile(jworld, spatial_sort=False))
+    jcfg = JConfig(width=16, height=8, samples_per_frame=1, ray_depth=2)
+    for jsession in (JSession(jworld, jcfg), JAdaptive(jworld, jcfg)):
+        assert jfingerprint(jsession.scene) == sorted_fp
+    for session in (RenderSession(world, CFG), AdaptiveSession(world, CFG)):
+        assert scene_fingerprint(session.scene) == sorted_fp
