@@ -5,15 +5,16 @@ same five flags with the same defaults and the same 0-means-derive size
 rule, headless — ``--frames`` bounds the progressive loop and the result is
 written to ``--out``. Extensions: scene, seed, backend, output transfer,
 checkpoint and resume, frame batching (``--frame-batch``), adaptive
-sampling (``--adaptive``), and a log line per step (frame, accumulated spp,
-ms, Mrays/s = traced ray segments per second).
+sampling (``--adaptive``), the estimator's modes (``--nee``, ``--rr N``,
+``--qmc``), and a log line per step (frame, accumulated spp, ms, Mrays/s =
+traced ray segments per second, shadow rays included).
 
-Sphere scenes, triangle meshes (``mesh``, ``mesh:N``) and large sphere
-fields (``spheres:N``) render on both backends; the CUDA kernel sweeps them
-behind the JAX kernel's chunk gates. The JAX package's other flags
-(serving, interactive orbits, denoising, AOVs, OBJ input, sharding, NEE,
-QMC, Russian roulette, ...) and its emissive and textured scenes are not in
-the port yet.
+Sphere scenes, triangle meshes (``mesh``, ``mesh:N``), large sphere fields
+(``spheres:N``) and the emissive scenes (``light``, ``cornell``) render on
+both backends; the CUDA kernel sweeps them behind the JAX kernel's chunk
+gates. The JAX package's other flags (serving, interactive orbits,
+denoising, AOVs, OBJ input, sharding, ...) and its textured scenes
+(``texture``, ``earth``) are not in the port yet.
 """
 
 from __future__ import annotations
@@ -51,10 +52,26 @@ def build_parser() -> argparse.ArgumentParser:
         help="built-in scene: reference, lambertian, three-sphere, defocus, "
         "final, mesh (triangle meshes), spheres:N (final-scene-style 2Nx2N "
         "sphere field, e.g. spheres:100 ~ 40k spheres) or mesh:N (icosphere "
-        "subdivisions, ~20*4^N triangles, e.g. mesh:5 ~ 25.6k); all run on "
-        "--backend cuda and torch",
+        "subdivisions, ~20*4^N triangles, e.g. mesh:5 ~ 25.6k), light and "
+        "cornell (emissive: lit only by DiffuseLight); all run on --backend "
+        "cuda and torch",
     )
     p.add_argument("--seed", type=int, default=0)
+    p.add_argument(
+        "--nee", action="store_true",
+        help="next-event estimation with MIS: one shadow ray toward a sampled "
+        "light per diffuse bounce (unbiased; a no-op without lights)",
+    )
+    p.add_argument(
+        "--rr", type=int, default=0, metavar="N",
+        help="Russian-roulette termination from bounce N on (survival p = "
+        "clamp(max throughput, 0.05, 0.95), 1/p compensation; unbiased)",
+    )
+    p.add_argument(
+        "--qmc", action="store_true",
+        help="low-discrepancy camera sampling: Owen-scrambled Sobol sub-pixel "
+        "jitter and lens draws (deterministic, like the default stream)",
+    )
     p.add_argument(
         "--backend", choices=["auto", "cuda", "torch"], default="auto",
         help="cuda: the CUDA kernel on the GPU (never falls back to the CPU); "
@@ -115,6 +132,9 @@ def main(argv=None) -> int:
         backend=args.backend,
         frame_batch=args.frame_batch,
         max_frames=args.frames,
+        nee=args.nee,
+        qmc=args.qmc,
+        rr=max(0, args.rr),
     )
     from myraytracer_tpu_torch.render.dispatch import make_session
 
@@ -127,10 +147,10 @@ def main(argv=None) -> int:
     session = make_session(world, config)
     log.info(
         "rendering scene=%s %dx%d spp/frame=%d depth=%d frames=%d "
-        "frame_batch=%d backend=%s",
+        "frame_batch=%d backend=%s nee=%s rr=%d qmc=%s",
         args.scene, session.width, session.height, config.samples_per_frame,
         config.ray_depth, args.frames, session.frame_batch,
-        session.backend_resolved,
+        session.backend_resolved, config.nee, config.rr, config.qmc,
     )
     if args.resume:
         session.load_checkpoint(args.resume)

@@ -5,8 +5,8 @@ CLI defaults at ``native-runner/src/main.rs:20-31``): same five knobs with
 the same defaults, plus device-side controls (sample batching, kernel
 backend, sharding mode) that have no reference counterpart. The fields and
 defaults are those of ``myraytracer_tpu.config``, so a configuration means
-the same render in both packages. The port's renderers refuse ``nee``,
-``qmc`` and ``rr`` (``NotImplementedError``) until they are ported.
+the same render in both packages, the estimator's modes (``nee``, ``rr``,
+``qmc``) included.
 
 Size inference mirrors ``lib.rs:113-134``: a 0 width or height means
 "derive" — one zero makes the image square from the other dimension; both

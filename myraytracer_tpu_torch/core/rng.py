@@ -23,6 +23,7 @@ from typing import Tuple
 
 import torch
 
+from myraytracer_tpu_torch.core.noise import _mul32, lowbias32
 from myraytracer_tpu_torch.core.vec import V3
 
 M32 = 0xFFFFFFFF
@@ -142,3 +143,82 @@ def unit_disk_from_uniforms(u1: torch.Tensor, u2: torch.Tensor) -> Tuple[torch.T
     r = torch.sqrt(u1)
     phi = u2 * TAU
     return r * torch.cos(phi), r * torch.sin(phi)
+
+
+# -- Low-discrepancy camera sampling (the ``qmc`` config knob) ----------------
+#
+# Under QMC the two camera dimension pairs (sub-pixel jitter, lens disk) come
+# from a Sobol (0,2) sequence indexed by the pixel's sample counter, with
+# Burley's hash-based Owen scrambling ("Practical Hash-based Owen
+# Scrambling", JCGT 2020): per (pixel, pair) the sample index is
+# Owen-shuffled and each output dimension Owen-scrambled under seeds derived
+# from the render key. Bounce draws stay threefry. The JAX package's
+# functions, u32 for u32 (``csrc/trace.cu`` repeats them).
+
+# Direction vectors of the canonical second Sobol dimension, all 32 bits.
+QMC_BITS = 32
+_SOBOL2_DIRS = []
+_d = 1 << 31
+for _ in range(QMC_BITS):
+    _SOBOL2_DIRS.append(_d)
+    _d ^= _d >> 1
+del _d
+
+
+def _reverse_bits32(v):
+    """Bitwise reversal of a u32 (the van der Corput radical inverse)."""
+    v = v & M32
+    v = ((v & 0x0000FFFF) << 16) | (v >> 16)
+    v = ((v & 0x00FF00FF) << 8) | ((v >> 8) & 0x00FF00FF)
+    v = ((v & 0x0F0F0F0F) << 4) | ((v >> 4) & 0x0F0F0F0F)
+    v = ((v & 0x33333333) << 2) | ((v >> 2) & 0x33333333)
+    v = ((v & 0x55555555) << 1) | ((v >> 1) & 0x55555555)
+    return v
+
+
+def _sobol2_bits(n):
+    """The second Sobol dimension of index ``n`` as raw u32 bits: the XOR of
+    the direction numbers of its set bits."""
+    n = n & M32
+    y = n * 0
+    for b, dv in enumerate(_SOBOL2_DIRS):
+        y = y ^ (((n >> b) & 1) * dv)
+    return y
+
+
+def sobol02(n, scramble0, scramble1) -> Tuple[torch.Tensor, torch.Tensor]:
+    """XOR-scrambled Sobol (0,2) pair of sample index ``n``: van der Corput
+    and the second Sobol dimension, each XOR a scramble word, as U[0,1).
+
+    The render path does not call it (the camera takes the Owen-scrambled
+    ``qmc_camera_uniforms``); it is the JAX package's unscrambled generator,
+    kept so that the tests hold the sequence's bits and its (0,2)-net
+    property against the reference."""
+    x = _reverse_bits32(n) ^ (scramble0 & M32)
+    y = _sobol2_bits(n) ^ (scramble1 & M32)
+    return _to_unit_f32(x), _to_unit_f32(y)
+
+
+def _laine_karras(x, seed):
+    """Laine-Karras permutation (an Owen scramble in reversed bit order):
+    bit i of the result depends only on bits 0..i of ``x``."""
+    x = (x + seed) & M32
+    for c in (0x6C50B47C, 0xB82F1E52, 0xC7AFE638, 0x8D22F6E6):
+        x = x ^ _mul32(x, c)
+    return x
+
+
+def owen_scramble(x, seed):
+    """Hash-based Owen (nested uniform) scramble of u32 fraction bits."""
+    return _reverse_bits32(_laine_karras(_reverse_bits32(x), seed))
+
+
+def qmc_camera_uniforms(key, lane_id, sample_id, pair: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Owen-scrambled Sobol camera pair: ``pair`` 0 = sub-pixel jitter, 1 =
+    lens. The seeds come from the reserved top draw words of the pixel's
+    stream (``QMC_SCRAMBLE_SLOTS``)."""
+    s0, s1 = threefry2x32(key, (lane_id, (0xFFFFFFFE + pair) & M32))
+    idx = owen_scramble(sample_id & M32, s0)
+    x = owen_scramble(_reverse_bits32(idx), s1)
+    y = owen_scramble(_sobol2_bits(idx), lowbias32(s1))
+    return _to_unit_f32(x), _to_unit_f32(y)

@@ -36,6 +36,7 @@ from myraytracer_tpu_torch.core import rng as crng
 from myraytracer_tpu_torch.render import integrator
 from myraytracer_tpu_torch.render.camera import pack_camera
 from myraytracer_tpu_torch.render.dispatch import resolve_backend
+from myraytracer_tpu_torch.render.lights import extract_lights
 from myraytracer_tpu_torch.render.session import (
     CHECKPOINT_VERSION, fma_f32, scene_fingerprint, wants_spatial_sort,
 )
@@ -64,6 +65,7 @@ def adaptive_block_sums(
     scene: CompiledScene, cam: api.Camera, key, width: int, height: int,
     block_ids: torch.Tensor, samp0: torch.Tensor, spp: int, windows: int,
     depth: int, t_min: float = 1e-3, t_max: float = 1e4, sky=None, gates=None,
+    nee_lights=None, qmc: bool = False, rr: int = 0,
 ):
     """The plain version of the CUDA adaptive kernel.
 
@@ -72,7 +74,8 @@ def adaptive_block_sums(
     BLOCK_H, BLOCK_W, 3] f32, segs [n_sel, BLOCK_H, BLOCK_W] f32)``: the
     sentinel id (``n_blocks``) and pixels past the image's edge hold zeros.
     Each pixel's sums are ``integrator.pixel_sums``', as the uniform
-    renderer's are, behind the kernel's ``gates`` when they are given.
+    renderer's are, behind the kernel's ``gates`` when they are given, with
+    the estimator's modes (``nee_lights``, ``qmc``, ``rr``).
     """
     dev = scene.device
     ids = block_ids.to(device=dev, dtype=torch.int64)
@@ -96,7 +99,7 @@ def adaptive_block_sums(
                 scene, ray_gen, ix, iy, start + f * spp, spp, key, width,
                 depth, t_min, t_max, sky=sky,
                 lens_draws=not cam.reference_mode, sample_batch=spp,
-                gates=gates,
+                gates=gates, nee_lights=nee_lights, qmc=qmc, rr=rr,
             )
             sums[f, at] = acc.stacked(-1)
             segs[at] += sg
@@ -131,14 +134,14 @@ def make_adaptive_oracle(
     F consecutive max_samples-sample windows per block and returns
     ``[F, n_sel, BLOCK_H, BLOCK_W, 3]``.
     """
-    del n_sel  # the oracle renders whatever id list it is handed
-    integrator.check_supported(material_set, nee_lights, texture_set, qmc, rr)
+    del n_sel, material_set  # the oracle renders whatever id list it is handed
+    integrator.check_supported(texture_set)
     spp, windows = int(max_samples), int(windows)
 
     def render(scene: CompiledScene, key, block_ids, samp0):
         sums, segs = adaptive_block_sums(
             scene, cam, key, width, height, block_ids, samp0, spp, windows,
-            ray_depth, t_min, t_max, sky,
+            ray_depth, t_min, t_max, sky, nee_lights=nee_lights, qmc=qmc, rr=rr,
         )
         return (sums if windows > 1 else sums[0]), segs.sum(dtype=torch.float64)
 
@@ -295,9 +298,7 @@ class AdaptiveSession:
             ray_depth=config.ray_depth, windows=self.windows,
             t_min=config.t_min, t_max=config.t_max,
             material_set=world.material_set or None, sky=world.ambient,
-            # A truthy marker: the port extracts no lights yet, and the
-            # renderers refuse nee until they do.
-            nee_lights=config.nee or None,
+            nee_lights=extract_lights(world) if config.nee else None,
             texture_set=world.texture_set or None, qmc=config.qmc,
             rr=config.rr,
         )

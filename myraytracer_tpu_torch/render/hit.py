@@ -32,10 +32,18 @@ it entered the chunk, so the result is the kernel's lane by lane, even
 where a gate is not conservative (a grazing hit that rounding puts
 outside its box). Without ``gates`` the sweep is ungated: the JAX jnp
 integrator's semantics.
+
+Every sweep runs from a per-lane starting ``t_best``: ``t_max`` for the
+path's rays, the light distance for NEE's shadow rays (``closest_t``, the
+JAX kernel's ``run_hit(t_init=limit)``), so a shadow ray's gates close on
+the light distance as the kernel's do. ``count_tests`` counts the
+ray-primitive tests a sweep makes, for the kernel's bound.
 """
 
 from __future__ import annotations
 
+import contextlib
+import contextvars
 from typing import NamedTuple, Optional, Tuple
 
 import torch
@@ -147,6 +155,36 @@ def _first_min(t_cand: torch.Tensor, rows: torch.Tensor):
     return t_min, i_min.amin(dim=-2)
 
 
+# (lane, primitive) tests made while ``count_tests`` is open in this context.
+_TESTS: contextvars.ContextVar = contextvars.ContextVar("sweep_tests", default=None)
+
+
+@contextlib.contextmanager
+def count_tests():
+    """Count the ray-primitive tests the sweeps make inside the block.
+
+    Yields a dict whose ``sphere`` and ``triangle`` entries hold, when the
+    block ends, the (lane, primitive) pairs tested: every primitive of an
+    ungated table, the leaders, and the chunks whose gates a lane entered.
+    That is the CUDA kernel's per-thread work, which ``chip_smoke.py``
+    turns into the kernel's bound.
+    """
+    counts = {"sphere": 0, "triangle": 0}
+    token = _TESTS.set(counts)
+    try:
+        yield counts
+    finally:
+        _TESTS.reset(token)
+        for k, v in counts.items():
+            counts[k] = int(v)
+
+
+def _count(kind: str, n) -> None:
+    counts = _TESTS.get()
+    if counts is not None:
+        counts[kind] = counts[kind] + n
+
+
 def _sweep(cand, n: int, chunk: int, t_best, i_best):
     """Merge ``cand(slice)`` candidates of primitives [0, n) into the
     running (t_best, i_best), ``chunk`` primitives at a time, strict <."""
@@ -161,33 +199,40 @@ def _sweep(cand, n: int, chunk: int, t_best, i_best):
     return t_best, i_best
 
 
-def _window(o: V3, t_min: float, t_max: float):
+def _window(o: V3, t_min: float, t_max: float, t_init=None):
     """``(t_min, t_max)`` as f32 scalars on the lanes' device, and the
-    running ``(t_best, i_best)`` of no hit yet: t_max and 0 per lane."""
+    running ``(t_best, i_best)`` of no hit yet: ``t_init`` (t_max when None)
+    and 0 per lane."""
     n_lanes, dev = o.x.shape[0], o.x.device
     f32 = torch.float32
+    if t_init is None:
+        t_init = torch.full((n_lanes,), t_max, dtype=f32, device=dev)
     return (torch.tensor(t_min, dtype=f32, device=dev),
             torch.tensor(t_max, dtype=f32, device=dev),
-            torch.full((n_lanes,), t_max, dtype=f32, device=dev),
+            t_init,
             torch.zeros((n_lanes,), dtype=torch.int64, device=dev))
 
 
 def _sphere_candidates(
-    o: V3, d: V3, scene: CompiledScene, t_min: float, t_max: float
+    o: V3, d: V3, scene: CompiledScene, t_min: float, t_max: float, t_init=None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(t_best, i_best) over all spheres; t_best == t_max on a miss."""
-    t_minf, big, t_best, i_best = _window(o, t_min, t_max)
+    """(t_best, i_best) over all spheres from the running ``t_init``;
+    t_best == t_init (t_max) on a miss."""
+    t_minf, big, t_best, i_best = _window(o, t_min, t_max, t_init)
     n = scene.padded_size
+    _count("sphere", n * t_best.shape[0])
     return _sweep(lambda sl: _sphere_t(o, d, scene, sl, t_minf, big),
                   n, _chunk_size(n, t_best.shape[0]), t_best, i_best)
 
 
 def _triangle_candidates(
-    o: V3, d: V3, tris: CompiledTriangles, t_min: float, t_max: float
+    o: V3, d: V3, tris: CompiledTriangles, t_min: float, t_max: float, t_init=None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(t_best, i_best) over all triangles; t_best == t_max on a miss."""
-    t_minf, big, t_best, i_best = _window(o, t_min, t_max)
+    """(t_best, i_best) over all triangles from the running ``t_init``;
+    t_best == t_init (t_max) on a miss."""
+    t_minf, big, t_best, i_best = _window(o, t_min, t_max, t_init)
     n = tris.padded_size
+    _count("triangle", n * t_best.shape[0])
     # Möller-Trumbore holds about twice the temporaries: half the chunk.
     return _sweep(lambda sl: _triangle_t(o, d, tris, sl, t_minf, big),
                   n, _chunk_size(n, 2 * t_best.shape[0]), t_best, i_best)
@@ -238,16 +283,20 @@ def _chunk_minima(cand, lo: int, n: int, width: int, n_chunks: int, n_lanes: int
     return torch.cat(ts), torch.cat(idx)
 
 
-def _gated_merge(t_best, i_best, won, t_c, i_c, tn_c, ok_c, tn_s, ok_s, super_w):
+def _gated_merge(t_best, i_best, won, t_c, i_c, tn_c, ok_c, tn_s, ok_s, super_w,
+                 kind, width):
     """Merge chunk minima into the running hit, chunk by chunk, each behind
     its gate (and its outer gate, when ``tn_s`` is given). ``won`` marks
-    the lanes any chunk improved."""
+    the lanes any chunk improved; the lanes entering a chunk count
+    ``width`` tests of ``kind`` each."""
     n_chunks = t_c.shape[0]
 
     def merge(c, t_best, i_best, won, outer):
         enter = ok_c[c] & (tn_c[c] <= t_best)
         if outer is not None:
             enter = enter & outer
+        if _TESTS.get() is not None:  # no reduction unless counting
+            _count(kind, enter.sum() * width)
         better = enter & (t_c[c] < t_best)
         return (torch.where(better, t_c[c], t_best),
                 torch.where(better, i_c[c], i_best), won | better)
@@ -264,7 +313,7 @@ def _gated_merge(t_best, i_best, won, t_c, i_c, tn_c, ok_c, tn_s, ok_s, super_w)
 
 
 def _gated_candidates(cand, n, lo, width, box, sbox, super_w, o, iv, t_minf,
-                      t_best, i_best):
+                      t_best, i_best, kind):
     """The gated part of one table: chunks of ``width`` from ``lo``, behind
     ``box`` (and ``sbox`` outer boxes), merged into (t_best, i_best).
     Returns (t_best, i_best, won)."""
@@ -278,19 +327,22 @@ def _gated_candidates(cand, n, lo, width, box, sbox, super_w, o, iv, t_minf,
     tn_s = ok_s = None
     if sbox is not None:
         tn_s, ok_s = _slab(sbox, o, iv, t_minf)
-    return _gated_merge(t_best, i_best, won, t_c, i_c, tn_c, ok_c, tn_s, ok_s, super_w)
+    return _gated_merge(t_best, i_best, won, t_c, i_c, tn_c, ok_c, tn_s, ok_s, super_w,
+                        kind, width)
 
 
 def _sphere_candidates_gated(o: V3, d: V3, scene: CompiledScene, gates: SweepGates,
-                             t_min: float, t_max: float):
-    """(t_best, i_best) over all spheres, leaders first and then chunk by
-    chunk behind the gates; equal to the CUDA kernel's gated sweep."""
-    t_minf, big, t_best, i_best = _window(o, t_min, t_max)
+                             t_min: float, t_max: float, t_init=None):
+    """(t_best, i_best) over all spheres from the running ``t_init``,
+    leaders first and then chunk by chunk behind the gates; equal to the
+    CUDA kernel's gated sweep."""
+    t_minf, big, t_best, i_best = _window(o, t_min, t_max, t_init)
     cand = lambda sl: _sphere_t(o, d, scene, sl, t_minf, big)  # noqa: E731
+    _count("sphere", LEADERS * t_best.shape[0])
     t_best, i_best = _sweep(cand, LEADERS, LEADERS, t_best, i_best)
     t_best, i_best, _ = _gated_candidates(
         cand, scene.padded_size, LEADERS, gates.chunk, gates.aabb,
-        gates.saabb, gates.super_w, o, _inv_dir(d), t_minf, t_best, i_best)
+        gates.saabb, gates.super_w, o, _inv_dir(d), t_minf, t_best, i_best, "sphere")
     return t_best, i_best
 
 
@@ -303,27 +355,43 @@ def _triangle_candidates_gated(o: V3, d: V3, tris: CompiledTriangles, gates: Swe
     cand = lambda sl: _triangle_t(o, d, tris, sl, t_minf, big)  # noqa: E731
     return _gated_candidates(
         cand, tris.padded_size, 0, gates.tri_chunk, gates.traabb, gates.tsaabb,
-        gates.super_w, o, _inv_dir(d), t_minf, t_sphere, i_best)
+        gates.super_w, o, _inv_dir(d), t_minf, t_sphere, i_best, "triangle")
+
+
+def _closest(o: V3, d: V3, scene: CompiledScene, t_min: float, t_max: float,
+             gates: Optional[SweepGates], t_init):
+    """The sweep: (t_best, sphere index, triangle index, lanes a triangle
+    won, or None without triangles), from the running ``t_init``."""
+    if gates is not None and gates.sph_cull:
+        ts, is_ = _sphere_candidates_gated(o, d, scene, gates, t_min, t_max, t_init)
+    else:
+        ts, is_ = _sphere_candidates(o, d, scene, t_min, t_max, t_init)
+    if not scene.has_triangles:
+        return ts, is_, None, None
+    if gates is not None and gates.tri_cull:
+        tt, it, tri_wins = _triangle_candidates_gated(
+            o, d, scene.tris, gates, ts, t_min, t_max)
+    else:
+        tt, it = _triangle_candidates(o, d, scene.tris, t_min, t_max, t_init)
+        tri_wins = tt < ts  # spheres first: an equal-t triangle loses
+    return torch.where(tri_wins, tt, ts), is_, it, tri_wins
+
+
+def closest_t(o: V3, d: V3, scene: CompiledScene, t_min: float, t_max: float,
+              t_init: torch.Tensor, gates: Optional[SweepGates] = None) -> torch.Tensor:
+    """The sweep's t_best from a per-lane starting ``t_init`` (the shadow
+    ray's, started at its light distance): below ``t_init`` iff some
+    primitive is hit in ``[t_min, t_init)``. Gated like the kernel's sweep,
+    which skips a chunk whose box the ray enters only after the lane's
+    running t_best."""
+    return _closest(o, d, scene, t_min, t_max, gates, t_init)[0]
 
 
 def closest_hit(o: V3, d: V3, scene: CompiledScene, t_min: float, t_max: float,
                 gates: Optional[SweepGates] = None) -> Hit:
     """Closest hit for normalized ray directions ``d`` over 1-D lanes;
     behind the kernel's gates when ``gates`` is given."""
-    if gates is not None and gates.sph_cull:
-        ts, is_ = _sphere_candidates_gated(o, d, scene, gates, t_min, t_max)
-    else:
-        ts, is_ = _sphere_candidates(o, d, scene, t_min, t_max)
-    tri_wins = None
-    t_best = ts
-    if scene.has_triangles:
-        if gates is not None and gates.tri_cull:
-            tt, it, tri_wins = _triangle_candidates_gated(
-                o, d, scene.tris, gates, ts, t_min, t_max)
-        else:
-            tt, it = _triangle_candidates(o, d, scene.tris, t_min, t_max)
-            tri_wins = tt < ts  # spheres first: an equal-t triangle loses
-        t_best = torch.where(tri_wins, tt, ts)
+    t_best, is_, it, tri_wins = _closest(o, d, scene, t_min, t_max, gates, None)
     mask = t_best < t_max
     point = o + d * t_best
 

@@ -1,26 +1,32 @@
 """The wavefront integrator in plain PyTorch: the port's oracle.
 
 Port of ``myraytracer_tpu.render.integrator`` for the slice the CUDA
-kernel covers (spheres and triangle meshes; Lambertian, Metal, Dielectric;
-gradient or constant sky; threefry camera draws). It is the plain version
-of the kernel in ``kernels/trace.py``: the kernel runs it for CPU tensors,
-and ``chip_smoke.py`` holds the kernel against it on the card. With
-``gates`` (``render.hit.SweepGates``) the closest-hit sweep takes the
-kernel's gates; without, it is the ungated sweep of the JAX jnp
-integrator.
+kernel covers (spheres and triangle meshes; Lambertian, Metal, Dielectric
+and DiffuseLight; gradient or constant sky; threefry or QMC camera draws;
+next-event estimation with MIS, Russian roulette, paged depth). It is the
+plain version of the kernel in ``kernels/trace.py``: the kernel runs it
+for CPU tensors, and ``chip_smoke.py`` holds the kernel against it on the
+card. With ``gates`` (``render.hit.SweepGates``) the closest-hit sweeps --
+the path's and the shadow ray's -- take the kernel's gates; without, they
+are the ungated sweep of the JAX jnp integrator.
 
 The reference's per-pixel bounce loop (``shader.wgsl:336-358``) becomes a
 loop over bounces on a batch of lanes:
 
 * miss lanes add ``throughput * sky`` and retire (shader.wgsl:343-345);
+* emissive hits add ``throughput * emit`` (MIS-weighted under NEE) and
+  retire;
+* under NEE a Lambertian hit samples one light and adds its shadow-tested
+  term (``render/lights.py``); its shadow ray counts as a segment;
 * absorbed lanes retire black (shader.wgsl:349-350);
 * depth exhaustion leaves the radiance untouched = black (shader.wgsl:357);
 * throughput multiplies the attenuation and the next direction is
-  normalized (shader.wgsl:353-354).
+  normalized (shader.wgsl:353-354); then Russian roulette, in the JAX
+  kernel's order (after the depth test).
 
 Each bounce works only on the lanes still alive (the JAX oracle masks
-dead lanes instead); per lane the arithmetic is the same, so the result
-is too.
+dead lanes instead); per lane the arithmetic and the order of the radiance
+additions are the same, so the result is too.
 
 Every random draw is ``threefry(key, (pixel_lane, sample*254 + slot))``,
 so the result is independent of batching: ``make_block_renderer`` renders
@@ -36,42 +42,23 @@ import torch
 from myraytracer_tpu_torch.core import rng as crng
 from myraytracer_tpu_torch.core.vec import V3
 from myraytracer_tpu_torch.render import camera as cam_mod
-from myraytracer_tpu_torch.render.hit import SweepGates, closest_hit
+from myraytracer_tpu_torch.render import lights as lights_mod
+from myraytracer_tpu_torch.render.hit import SweepGates, closest_hit, closest_t
 from myraytracer_tpu_torch.render.materials import color_sky, scatter
 from myraytracer_tpu_torch.scene import api
 from myraytracer_tpu_torch.scene.api import Camera
 from myraytracer_tpu_torch.scene.compile import CompiledScene
 
 M32 = crng.M32
-SUPPORTED_MATERIALS = frozenset(
-    (api.MATERIAL_LAMBERTIAN, api.MATERIAL_METAL, api.MATERIAL_DIELECTRIC)
-)
 
 
-def check_supported(
-    material_set=None, nee_lights=None, texture_set=None, qmc: bool = False,
-    rr: int = 0,
-) -> None:
-    """Raise ``NotImplementedError`` for what the port does not render yet.
-
-    Shared by the plain integrator, the CUDA kernel and the adaptive
-    renderers, which cover the same slice of the JAX package's integrator.
-    """
-    absent = []
-    if nee_lights:
-        absent.append("next-event estimation (nee)")
-    if qmc:
-        absent.append("QMC camera sampling (qmc)")
-    if rr:
-        absent.append("Russian roulette (rr)")
+def check_supported(texture_set=None) -> None:
+    """Raise ``NotImplementedError`` for what the port does not render yet:
+    textures. Shared by the plain integrator, the CUDA kernel and the
+    adaptive renderers, which cover the same slice of the JAX package's
+    integrator."""
     if texture_set:
-        absent.append("textures")
-    if material_set is not None and not set(material_set) <= SUPPORTED_MATERIALS:
-        absent.append("emissive materials (DiffuseLight)")
-    if absent:
-        raise NotImplementedError(
-            "the PyTorch port does not support " + ", ".join(absent) + " yet"
-        )
+        raise NotImplementedError("the PyTorch port does not support textures yet")
 
 
 def _sky_color(d: V3, sky) -> V3:
@@ -79,6 +66,12 @@ def _sky_color(d: V3, sky) -> V3:
         return color_sky(d.y)
     zs = torch.zeros_like(d.y)
     return V3(zs + float(sky[0]), zs + float(sky[1]), zs + float(sky[2]))
+
+
+def _add_at(rad: V3, idx: torch.Tensor, c: V3) -> None:
+    """``rad[idx] = rad[idx] + c``, in place (``idx`` holds no repeats)."""
+    for r, v in zip(rad, c):
+        r[idx] = r[idx] + v
 
 
 def trace(
@@ -93,16 +86,23 @@ def trace(
     t_max: float,
     sky=None,
     gates: Optional[SweepGates] = None,
+    nee_lights=None,
+    rr: int = 0,
 ) -> Tuple[V3, torch.Tensor]:
     """Trace normalized rays (1-D lanes) to completion.
 
     ``lane_id`` and ``sample_id`` are int64 tensors of u32 values. Returns
     (radiance V3, segments int32) where ``segments`` counts the bounces in
-    which each lane's path was alive. ``sky`` is an optional constant
-    background color (``World.ambient``); ``None`` keeps the gradient.
-    Depths past ``MAX_DEPTH`` draw their bounces from paged keys
-    (``crng.depth_page_key``), as the JAX oracle does.
+    which each lane's path was alive, shadow rays included. ``sky`` is an
+    optional constant background color (``World.ambient``); ``None`` keeps
+    the gradient. ``nee_lights`` (``lights.extract_lights``; empty or None
+    = off) enables next-event estimation with MIS; ``rr > 0`` Russian
+    roulette before bounce ``rr`` and later, its decision drawn under the
+    ``RR_KEY_FOLD`` key of the bounce's page. Depths past ``MAX_DEPTH`` draw
+    their bounces from paged keys (``crng.depth_page_key``).
     """
+    nee = bool(nee_lights)
+    rr = int(rr)
     n = o.x.shape[0]
     dev = o.x.device
     rad = V3.zeros((n,), dev)
@@ -112,29 +112,40 @@ def trace(
     atten = V3.ones((n,), dev)
     lane = lane_id
     draw_base = (sample_id * crng.DRAWS_PER_SAMPLE + crng.CAMERA_DRAWS) & M32
+    # Cosine of the last diffuse scatter (MIS pickup weight; 0 = specular).
+    prev_cos = torch.zeros((n,), device=dev)
+    shadow_scale = 1.0 - lights_mod.SHADOW_EPS
     for i in range(int(depth)):
         if live.numel() == 0:
             break
         segs[live] += 1
         hit = closest_hit(o, d, scene, t_min, t_max, gates)
 
-        # Miss → attenuation * sky, retire (shader.wgsl:343-345). A lane
-        # gathers radiance at most once, so the oracle's ``0 + x`` is ``x``.
+        # Miss → attenuation * sky, retire (shader.wgsl:343-345).
         miss = ~hit.mask
         if bool(miss.any()):
-            skyv = _sky_color(d.index(miss), sky)
-            contrib = atten.index(miss) * skyv
-            gone = live[miss]
-            rad.x[gone] = contrib.x
-            rad.y[gone] = contrib.y
-            rad.z[gone] = contrib.z
-        keep = hit.mask
+            _add_at(rad, live[miss], atten.index(miss) * _sky_color(d.index(miss), sky))
+        # Emissive hit → attenuation * emission (the albedo rows), retire;
+        # under NEE weighted against the light sampler's density.
+        is_light = hit.mask & (hit.mat_ty == api.MATERIAL_LIGHT)
+        if bool(is_light.any()):
+            c = atten.index(is_light) * hit.albedo.index(is_light)
+            if nee:
+                pd = prev_cos[is_light]
+                piq = lights_mod.light_pdf_at_hit(
+                    nee_lights, o.index(is_light), d.index(is_light), hit.t[is_light])
+                c = c * torch.where(pd > 0.0, pd / torch.clamp_min(pd + piq, 1e-12), 1.0)
+            _add_at(rad, live[is_light], c)
+        keep = hit.mask & ~is_light
         live, lane, draw_base = live[keep], lane[keep], draw_base[keep]
-        d, atten = d.index(keep), atten.index(keep)
+        o, d, atten = o.index(keep), d.index(keep), atten.index(keep)
         hit = _select_lanes(hit, keep)
+        if nee:
+            prev_cos = prev_cos[keep]
 
         # Scatter draws: slot 0 = unit sphere; slots 1-2 = unit ball; slot
-        # 2's second word = the dielectric reflect draw.
+        # 2's second word = the dielectric reflect draw (and NEE's light
+        # pick); slot 3 = NEE's light point.
         page, local = divmod(i, crng.BOUNCES_PER_PAGE)
         bkey = crng.depth_page_key(key, page)
         draw = (draw_base + local * crng.DRAWS_PER_BOUNCE) & M32
@@ -144,12 +155,47 @@ def trace(
         sphere_sample = crng.unit_sphere_from_uniforms(us1, us2)
         ball_sample = crng.unit_ball_from_uniforms(ub1, ub2, ub3)
 
+        is_lamb = hit.mat_ty == api.MATERIAL_LAMBERTIAN
+        if nee and bool(is_lamb.any()):
+            # One shadow ray per Lambertian hit, counted whether or not the
+            # sample is usable; the sweep starts at the light distance.
+            sel = is_lamb.nonzero().squeeze(1)
+            n1, n2 = crng.uniform2(bkey, lane[sel], draw[sel] + 3)
+            point, normal = hit.point.index(sel), hit.normal.index(sel)
+            omega, t_p, contrib, add = lights_mod.sample_lights(
+                nee_lights, point, normal, ud[sel], n1, n2)
+            segs[live[sel]] += 1
+            sel, omega, t_p, contrib = (sel[add], omega.index(add), t_p[add],
+                                        contrib.index(add))
+            limit = t_p * shadow_scale
+            t_sh = closest_t(point.index(add), omega, scene, t_min, t_max, limit, gates)
+            lit = ~(t_sh < limit)
+            sel = sel[lit]
+            c = (atten.index(sel) * hit.albedo.index(sel)) * contrib.index(lit)
+            _add_at(rad, live[sel], c)
+
         sc = scatter(d, hit, sphere_sample, ball_sample, ud)
         ok = sc.ok  # absorbed → retire black (shader.wgsl:349-350)
-        live, lane, draw_base = live[ok], lane[ok], draw_base[ok]
+        live, lane, draw, is_lamb = live[ok], lane[ok], draw[ok], is_lamb[ok]
+        draw_base = draw_base[ok]
+        normal = hit.normal.index(ok)
         atten = atten.index(ok) * sc.attenuation.index(ok)
         o = hit.point.index(ok)
         d = sc.direction.index(ok).normalize()  # shader.wgsl:354
+        if nee:
+            prev_cos = torch.where(is_lamb, torch.clamp_min(d.dot(normal), 0.0), 0.0)
+        if rr and rr <= i + 1 < depth:
+            # Russian roulette before bounce i+1: kill with probability
+            # 1-p, divide the survivors' throughput by p.
+            u, _ = crng.uniform2(crng.fold_key(bkey, crng.RR_KEY_FOLD), lane, draw)
+            p = torch.clamp(torch.maximum(atten.x, torch.maximum(atten.y, atten.z)),
+                            0.05, 0.95)
+            live_on = ~(u >= p)
+            live, lane, draw_base = live[live_on], lane[live_on], draw_base[live_on]
+            o, d = o.index(live_on), d.index(live_on)
+            atten = atten.index(live_on) * (1.0 / p[live_on])
+            if nee:
+                prev_cos = prev_cos[live_on]
     return rad, segs
 
 
@@ -174,22 +220,34 @@ def render_sample_batch(
     sky=None,
     lens_draws: bool = True,
     gates: Optional[SweepGates] = None,
+    nee_lights=None,
+    qmc: bool = False,
+    rr: int = 0,
 ) -> Tuple[V3, torch.Tensor]:
     """Camera-generate and trace one batch of (pixel, sample) lanes.
 
     Camera draw slots: 0 = sub-pixel jitter, 1 = lens disk. Slots are
     absolute, so a camera without a lens (reference mode) skips slot 1
-    and nothing else in the stream moves.
+    and nothing else in the stream moves. Under ``qmc`` both pairs come
+    from the Owen-scrambled Sobol sequence instead (``crng``), and slots
+    0-1 are not drawn.
     """
-    cam_draw = (sample_id * crng.DRAWS_PER_SAMPLE) & M32
-    u1, u2 = crng.uniform2(key, lane_id, cam_draw)
-    if lens_draws:
-        l1, l2 = crng.uniform2(key, lane_id, cam_draw + 1)
+    if qmc:
+        u1, u2 = crng.qmc_camera_uniforms(key, lane_id, sample_id, 0)
+        if lens_draws:
+            l1, l2 = crng.qmc_camera_uniforms(key, lane_id, sample_id, 1)
+        else:
+            l1 = l2 = torch.zeros_like(u1)
     else:
-        l1 = l2 = torch.zeros_like(u1)
+        cam_draw = (sample_id * crng.DRAWS_PER_SAMPLE) & M32
+        u1, u2 = crng.uniform2(key, lane_id, cam_draw)
+        if lens_draws:
+            l1, l2 = crng.uniform2(key, lane_id, cam_draw + 1)
+        else:
+            l1 = l2 = torch.zeros_like(u1)
     o, d = ray_gen(ix, iy, u1, u2, l1, l2)
     return trace(o, d, lane_id, sample_id, key, scene, depth, t_min, t_max, sky=sky,
-                 gates=gates)
+                 gates=gates, nee_lights=nee_lights, rr=rr)
 
 
 def ray_generator(cam: Camera, width: int, height: int,
@@ -220,6 +278,9 @@ def pixel_sums(
     lens_draws: bool = True,
     sample_batch: int = 1,
     gates: Optional[SweepGates] = None,
+    nee_lights=None,
+    qmc: bool = False,
+    rr: int = 0,
 ) -> Tuple[V3, torch.Tensor]:
     """Radiance sums and segment counts of 1-D pixel lanes ``(ix, iy)``
     over sample indices ``[sample_start, sample_start + n_samples)``.
@@ -247,7 +308,7 @@ def pixel_sums(
             lane_id.expand(k, n).reshape(-1),
             sample_id.reshape(-1),
             key, depth, t_min, t_max, sky=sky, lens_draws=lens_draws,
-            gates=gates,
+            gates=gates, nee_lights=nee_lights, qmc=qmc, rr=rr,
         )
         rad = V3(*(c.view(k, n) for c in rad))
         for r in range(k):
@@ -292,9 +353,13 @@ def make_block_renderer(
     segment counts are totals over the K frames.
 
     ``gates`` (the scene's, from ``kernels.trace.gate_tables``) makes the
-    closest-hit sweep the CUDA kernel's gated sweep.
+    closest-hit sweeps the CUDA kernel's gated sweep. ``nee_lights``,
+    ``qmc`` and ``rr`` select the estimator's modes (``trace``,
+    ``render_sample_batch``); ``material_set`` is not needed (emission is
+    read from the compiled scene).
     """
-    check_supported(material_set, nee_lights, texture_set, qmc, rr)
+    del material_set
+    check_supported(texture_set)
     frames = int(frames)
     n_pixels = n_rows * width
 
@@ -306,7 +371,7 @@ def make_block_renderer(
             pix % width, pix // width + int(row0), int(sample_start),
             int(n_valid), key, width, ray_depth, t_min, t_max, sky=sky,
             lens_draws=not cam.reference_mode, sample_batch=sample_batch,
-            gates=gates,
+            gates=gates, nee_lights=nee_lights, qmc=qmc, rr=rr,
         )
         img_sum = acc.stacked(-1).view(n_rows, width, 3)
         return img_sum, segs.to(torch.float32).view(n_rows, width)

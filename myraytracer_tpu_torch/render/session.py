@@ -31,6 +31,7 @@ from myraytracer_tpu_torch.config import RenderConfig
 from myraytracer_tpu_torch.core import rng as crng
 from myraytracer_tpu_torch.render.camera import pack_camera
 from myraytracer_tpu_torch.render.integrator import make_renderer
+from myraytracer_tpu_torch.render.lights import extract_lights
 from myraytracer_tpu_torch.scene import api
 from myraytracer_tpu_torch.scene.compile import SCENE_LEAVES, compile_scene, leaf
 
@@ -163,9 +164,7 @@ class RenderSession:
             material_set=world.material_set or None,
             frames=self.frame_batch,
             sky=world.ambient,
-            # A truthy marker: the port extracts no lights yet, and the
-            # factories refuse nee until they do.
-            nee_lights=config.nee or None,
+            nee_lights=extract_lights(world) if config.nee else None,
             texture_set=world.texture_set or None,
             qmc=config.qmc,
             rr=config.rr,

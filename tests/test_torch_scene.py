@@ -129,9 +129,7 @@ def test_scene_from_numpy_round_trips_a_jax_mesh_scene(name):
 
 @pytest.mark.parametrize("name,refused_by", [
     ("mesh", None),  # triangle meshes compile and render
-    # Quads with a DiffuseLight: the mesh compiles, and the session refuses
-    # the emission (integrator.check_supported).
-    ("cornell", "session"),
+    ("cornell", None),  # quads with a DiffuseLight: emission renders too
     ("texture", "compile"),
     ("earth", "compile"),
 ], ids=["mesh", "cornell", "texture", "earth"])
@@ -143,11 +141,7 @@ def test_unsupported_worlds_raise(name, refused_by):
         return
     scene = tcompile(world)
     assert scene.has_triangles and scene.tris.padded_size >= world.triangle_count
-    if refused_by == "session":
-        with pytest.raises(NotImplementedError, match="emissive"):
-            RenderSession(world, RenderConfig(width=8, height=8, ray_depth=2))
-    else:
-        RenderSession(world, RenderConfig(width=8, height=8, ray_depth=2)).step()
+    RenderSession(world, RenderConfig(width=8, height=8, ray_depth=2)).step()
 
 
 def test_obj_scene_raises():
