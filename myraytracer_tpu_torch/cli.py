@@ -10,11 +10,12 @@ sampling (``--adaptive``), the estimator's modes (``--nee``, ``--rr N``,
 traced ray segments per second, shadow rays included).
 
 Sphere scenes, triangle meshes (``mesh``, ``mesh:N``), large sphere fields
-(``spheres:N``) and the emissive scenes (``light``, ``cornell``) render on
-both backends; the CUDA kernel sweeps them behind the JAX kernel's chunk
-gates. The JAX package's other flags (serving, interactive orbits,
-denoising, AOVs, OBJ input, sharding, ...) and its textured scenes
-(``texture``, ``earth``) are not in the port yet.
+(``spheres:N``), the emissive scenes (``light``, ``cornell``) and the
+textured ones (``texture``: checker and marble; ``earth``: an image
+texture) render on both backends; the CUDA kernel sweeps them behind the
+JAX kernel's chunk gates and evaluates textures in the kernel. The JAX
+package's other flags (serving, interactive orbits, denoising, AOVs, OBJ
+input, sharding, ...) are not in the port yet.
 """
 
 from __future__ import annotations
@@ -53,8 +54,9 @@ def build_parser() -> argparse.ArgumentParser:
         "final, mesh (triangle meshes), spheres:N (final-scene-style 2Nx2N "
         "sphere field, e.g. spheres:100 ~ 40k spheres) or mesh:N (icosphere "
         "subdivisions, ~20*4^N triangles, e.g. mesh:5 ~ 25.6k), light and "
-        "cornell (emissive: lit only by DiffuseLight); all run on --backend "
-        "cuda and torch",
+        "cornell (emissive: lit only by DiffuseLight), texture (checker and "
+        "marble) and earth (an image texture); all run on --backend cuda and "
+        "torch",
     )
     p.add_argument("--seed", type=int, default=0)
     p.add_argument(

@@ -8,7 +8,10 @@ threefry sample stream:
 
 ``auto`` resolves to ``cuda`` when ``torch.cuda.is_available()`` and to
 ``torch`` otherwise, and logs the choice. ``cuda`` never runs on the CPU:
-without a GPU it raises.
+without a GPU it raises. Every scene takes the backend it is given:
+unlike the JAX package, which sends image-textured scenes to its jnp
+integrator (its Pallas kernel has no per-lane gather), the CUDA kernel
+renders them.
 """
 
 from __future__ import annotations

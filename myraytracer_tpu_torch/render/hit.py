@@ -31,7 +31,9 @@ against the merged ``t_best``. A lane merges a chunk's candidates only if
 it entered the chunk, so the result is the kernel's lane by lane, even
 where a gate is not conservative (a grazing hit that rounding puts
 outside its box). Without ``gates`` the sweep is ungated: the JAX jnp
-integrator's semantics.
+integrator's semantics. On a textured scene the record carries the
+winner's texture rows, a sphere's or, where a triangle wins, the
+triangle's (JAX ``hit.py:335-394``).
 
 Every sweep runs from a per-lane starting ``t_best``: ``t_max`` for the
 path's rays, the light distance for NEE's shadow rays (``closest_t``, the
@@ -87,6 +89,11 @@ class Hit(NamedTuple):
     albedo: V3
     fuzz: torch.Tensor
     ior: torch.Tensor
+    # The winner's texture rows (render/textures.py); None when the scene
+    # is untextured.
+    tex_ty: Optional[torch.Tensor] = None  # i32
+    albedo2: Optional[V3] = None
+    tex_scale: Optional[torch.Tensor] = None
 
 
 def _chunk_size(n_prims: int, n_lanes: int) -> int:
@@ -165,11 +172,13 @@ def count_tests():
 
     Yields a dict whose ``sphere`` and ``triangle`` entries hold, when the
     block ends, the (lane, primitive) pairs tested: every primitive of an
-    ungated table, the leaders, and the chunks whose gates a lane entered.
-    That is the CUDA kernel's per-thread work, which ``chip_smoke.py``
-    turns into the kernel's bound.
+    ungated table, the leaders, and the chunks whose gates a lane entered;
+    and whose ``checker``, ``marble`` and ``image`` entries hold the texture
+    evaluations of each kind (``render/textures.py``). That is the CUDA
+    kernel's per-thread work, which ``chip_smoke.py`` turns into the
+    kernel's bound.
     """
-    counts = {"sphere": 0, "triangle": 0}
+    counts = {"sphere": 0, "triangle": 0, "checker": 0, "marble": 0, "image": 0}
     token = _TESTS.set(counts)
     try:
         yield counts
@@ -179,7 +188,13 @@ def count_tests():
             counts[k] = int(v)
 
 
-def _count(kind: str, n) -> None:
+def counting() -> bool:
+    """Whether a ``count_tests`` block is open in this context."""
+    return _TESTS.get() is not None
+
+
+def count_work(kind: str, n) -> None:
+    """Add ``n`` to the ``kind`` entry of an open ``count_tests`` block."""
     counts = _TESTS.get()
     if counts is not None:
         counts[kind] = counts[kind] + n
@@ -220,7 +235,7 @@ def _sphere_candidates(
     t_best == t_init (t_max) on a miss."""
     t_minf, big, t_best, i_best = _window(o, t_min, t_max, t_init)
     n = scene.padded_size
-    _count("sphere", n * t_best.shape[0])
+    count_work("sphere", n * t_best.shape[0])
     return _sweep(lambda sl: _sphere_t(o, d, scene, sl, t_minf, big),
                   n, _chunk_size(n, t_best.shape[0]), t_best, i_best)
 
@@ -232,7 +247,7 @@ def _triangle_candidates(
     t_best == t_init (t_max) on a miss."""
     t_minf, big, t_best, i_best = _window(o, t_min, t_max, t_init)
     n = tris.padded_size
-    _count("triangle", n * t_best.shape[0])
+    count_work("triangle", n * t_best.shape[0])
     # Möller-Trumbore holds about twice the temporaries: half the chunk.
     return _sweep(lambda sl: _triangle_t(o, d, tris, sl, t_minf, big),
                   n, _chunk_size(n, 2 * t_best.shape[0]), t_best, i_best)
@@ -295,8 +310,8 @@ def _gated_merge(t_best, i_best, won, t_c, i_c, tn_c, ok_c, tn_s, ok_s, super_w,
         enter = ok_c[c] & (tn_c[c] <= t_best)
         if outer is not None:
             enter = enter & outer
-        if _TESTS.get() is not None:  # no reduction unless counting
-            _count(kind, enter.sum() * width)
+        if counting():  # no reduction unless counting
+            count_work(kind, enter.sum() * width)
         better = enter & (t_c[c] < t_best)
         return (torch.where(better, t_c[c], t_best),
                 torch.where(better, i_c[c], i_best), won | better)
@@ -338,7 +353,7 @@ def _sphere_candidates_gated(o: V3, d: V3, scene: CompiledScene, gates: SweepGat
     CUDA kernel's gated sweep."""
     t_minf, big, t_best, i_best = _window(o, t_min, t_max, t_init)
     cand = lambda sl: _sphere_t(o, d, scene, sl, t_minf, big)  # noqa: E731
-    _count("sphere", LEADERS * t_best.shape[0])
+    count_work("sphere", LEADERS * t_best.shape[0])
     t_best, i_best = _sweep(cand, LEADERS, LEADERS, t_best, i_best)
     t_best, i_best, _ = _gated_candidates(
         cand, scene.padded_size, LEADERS, gates.chunk, gates.aabb,
@@ -402,6 +417,11 @@ def closest_hit(o: V3, d: V3, scene: CompiledScene, t_min: float, t_max: float,
     mat_ty = take(scene.mat_ty)
     albedo = V3(take(scene.albedo.x), take(scene.albedo.y), take(scene.albedo.z))
     fuzz, ior, idx = take(scene.fuzz), take(scene.ior), is_
+    textured = scene.tex_ty is not None
+    tex_ty = albedo2 = tex_scale = None
+    if textured:
+        tex_ty, tex_scale = take(scene.tex_ty), take(scene.tex_scale)
+        albedo2 = V3(take(scene.albedo2.x), take(scene.albedo2.y), take(scene.albedo2.z))
     if tri_wins is not None:
         tr = scene.tris
         tk = lambda a: a[it]  # noqa: E731
@@ -417,6 +437,11 @@ def closest_hit(o: V3, d: V3, scene: CompiledScene, t_min: float, t_max: float,
         fuzz = torch.where(tri_wins, tk(tr.fuzz), fuzz)
         ior = torch.where(tri_wins, tk(tr.ior), ior)
         idx = torch.where(tri_wins, it, is_)
+        if textured:
+            tex_ty = torch.where(tri_wins, tk(tr.tex_ty), tex_ty)
+            albedo2 = V3.where(tri_wins, V3(tk(tr.albedo2.x), tk(tr.albedo2.y),
+                                            tk(tr.albedo2.z)), albedo2)
+            tex_scale = torch.where(tri_wins, tk(tr.tex_scale), tex_scale)
     front = normal.dot(d) <= 0.0  # shader.wgsl:303
     normal = V3.where(front, normal, -normal)
     return Hit(
@@ -430,4 +455,7 @@ def closest_hit(o: V3, d: V3, scene: CompiledScene, t_min: float, t_max: float,
         albedo=albedo,
         fuzz=fuzz,
         ior=ior,
+        tex_ty=tex_ty,
+        albedo2=albedo2,
+        tex_scale=tex_scale,
     )

@@ -2,8 +2,9 @@
 
 Port of ``myraytracer_tpu.render.integrator`` for the slice the CUDA
 kernel covers (spheres and triangle meshes; Lambertian, Metal, Dielectric
-and DiffuseLight; gradient or constant sky; threefry or QMC camera draws;
-next-event estimation with MIS, Russian roulette, paged depth). It is the
+and DiffuseLight; checker, marble and image textures; gradient or constant
+sky; threefry or QMC camera draws; next-event estimation with MIS, Russian
+roulette, paged depth). It is the
 plain version of the kernel in ``kernels/trace.py``: the kernel runs it
 for CPU tensors, and ``chip_smoke.py`` holds the kernel against it on the
 card. With ``gates`` (``render.hit.SweepGates``) the closest-hit sweeps --
@@ -45,20 +46,12 @@ from myraytracer_tpu_torch.render import camera as cam_mod
 from myraytracer_tpu_torch.render import lights as lights_mod
 from myraytracer_tpu_torch.render.hit import SweepGates, closest_hit, closest_t
 from myraytracer_tpu_torch.render.materials import color_sky, scatter
+from myraytracer_tpu_torch.render.textures import apply_texture
 from myraytracer_tpu_torch.scene import api
 from myraytracer_tpu_torch.scene.api import Camera
 from myraytracer_tpu_torch.scene.compile import CompiledScene
 
 M32 = crng.M32
-
-
-def check_supported(texture_set=None) -> None:
-    """Raise ``NotImplementedError`` for what the port does not render yet:
-    textures. Shared by the plain integrator, the CUDA kernel and the
-    adaptive renderers, which cover the same slice of the JAX package's
-    integrator."""
-    if texture_set:
-        raise NotImplementedError("the PyTorch port does not support textures yet")
 
 
 def _sky_color(d: V3, sky) -> V3:
@@ -140,6 +133,11 @@ def trace(
         live, lane, draw_base = live[keep], lane[keep], draw_base[keep]
         o, d, atten = o.index(keep), d.index(keep), atten.index(keep)
         hit = _select_lanes(hit, keep)
+        # The texture's value at the hit replaces the albedo (no-op on an
+        # untextured scene), so NEE and the scatter see the effective color
+        # (JAX integrator.py:101-105). Applied to the scattering lanes only:
+        # lights are never textured, so emission above reads the same rows.
+        hit = apply_texture(hit, image=scene.tex_image)
         if nee:
             prev_cos = prev_cos[keep]
 
@@ -202,7 +200,7 @@ def trace(
 def _select_lanes(hit, idx):
     """The hit record of the selected lanes."""
     return type(hit)(*(
-        f.index(idx) if isinstance(f, V3) else f[idx] for f in hit
+        None if f is None else f.index(idx) if isinstance(f, V3) else f[idx] for f in hit
     ))
 
 
@@ -355,11 +353,11 @@ def make_block_renderer(
     ``gates`` (the scene's, from ``kernels.trace.gate_tables``) makes the
     closest-hit sweeps the CUDA kernel's gated sweep. ``nee_lights``,
     ``qmc`` and ``rr`` select the estimator's modes (``trace``,
-    ``render_sample_batch``); ``material_set`` is not needed (emission is
-    read from the compiled scene).
+    ``render_sample_batch``); ``material_set`` and ``texture_set`` are not
+    needed (emission and the texture rows are read from the compiled
+    scene).
     """
-    del material_set
-    check_supported(texture_set)
+    del material_set, texture_set  # emission and textures are read off the scene
     frames = int(frames)
     n_pixels = n_rows * width
 

@@ -109,9 +109,6 @@ class ImageTexture:
     which maps only its earth sphere). ``scale`` tiles the map
     (``scale=2`` wraps the image twice around the equator; the book's
     plain mapping is ``scale=1``).
-
-    The PyTorch port does not render textures yet (``compile_scene``
-    raises ``NotImplementedError``).
     """
 
     data: object  # np.ndarray-like [H, W, 3] float in [0, 1]

@@ -19,8 +19,12 @@ triangle chunk width (``TRI_CHUNK_AUTO``) in the same way.
 Triangle rows are ``v0`` and the edges ``e1 = v1 - v0``, ``e2 = v2 - v0``;
 padding slots have zero edges, so their Möller-Trumbore determinant is 0
 and they never hit. The JAX package's optional triangle BVH (built by its
-native module) is not in the port, and textures are not either: a world
-with a textured material raises ``NotImplementedError``.
+native module) is not in the port.
+
+Textured worlds get three more rows a primitive (``tex_ty``, ``albedo2``,
+``tex_scale``; ``render/textures.py``), spheres and triangles alike, and
+an image-textured one its bitmap (``tex_image``); the sorts carry them
+with their primitives. Untextured scenes have ``None`` there, as in JAX.
 """
 
 from __future__ import annotations
@@ -52,6 +56,10 @@ class CompiledTriangles(NamedTuple):
     fuzz: torch.Tensor
     ior: torch.Tensor
     mat_ty: torch.Tensor  # i32
+    # Texture rows (None on untextured scenes; see CompiledScene).
+    tex_ty: Optional[torch.Tensor] = None  # [T] i32
+    albedo2: Optional[V3] = None  # [T] f32 each (checker ODD color)
+    tex_scale: Optional[torch.Tensor] = None  # [T] f32
 
     @property
     def padded_size(self) -> int:
@@ -78,6 +86,16 @@ class CompiledScene(NamedTuple):
     # when set, a general-mode renderer reads the thin-lens basis from it
     # instead of its construction-time camera.
     cam: Optional[torch.Tensor] = None
+    # Texture rows (render/textures.py), None on untextured scenes:
+    # ``albedo`` doubles as the solid / checker-EVEN / marble base color (a
+    # white multiplier for an image), ``albedo2`` is the checker ODD color,
+    # ``tex_scale`` the frequency or tiling.
+    tex_ty: Optional[torch.Tensor] = None  # [N] i32 (api.TEXTURE_*)
+    albedo2: Optional[V3] = None  # [N] f32 each
+    tex_scale: Optional[torch.Tensor] = None  # [N] f32
+    # The bitmap of TEXTURE_IMAGE primitives ([TH, TW, 3] f32; one image a
+    # scene, None unless it has an api.ImageTexture).
+    tex_image: Optional[torch.Tensor] = None
 
     @property
     def padded_size(self) -> int:
@@ -94,7 +112,9 @@ class CompiledScene(NamedTuple):
 
 # The names of the JAX ``CompiledScene`` leaves, in its pytree order (the
 # order ``scene_fingerprint`` hashes): the sphere leaves every scene has,
-# then the triangle leaves a scene with meshes has.
+# the triangle leaves a scene with meshes has (their texture rows last, on
+# a textured scene), then a textured scene's sphere texture rows and its
+# bitmap, if it has one.
 SPHERE_LEAVES = (
     "center.x", "center.y", "center.z", "radius", "radius_sq",
     "albedo.x", "albedo.y", "albedo.z", "fuzz", "ior", "mat_ty",
@@ -103,7 +123,13 @@ TRIANGLE_LEAVES = tuple(
     f"tris.{v}.{c}" for v in ("v0", "e1", "e2") for c in "xyz"
 ) + ("tris.albedo.x", "tris.albedo.y", "tris.albedo.z",
      "tris.fuzz", "tris.ior", "tris.mat_ty")
-SCENE_LEAVES = SPHERE_LEAVES + TRIANGLE_LEAVES
+TRIANGLE_TEXTURE_LEAVES = (
+    "tris.tex_ty", "tris.albedo2.x", "tris.albedo2.y", "tris.albedo2.z", "tris.tex_scale",
+)
+TEXTURE_LEAVES = ("tex_ty", "albedo2.x", "albedo2.y", "albedo2.z", "tex_scale")
+IMAGE_LEAF = "tex_image"
+SCENE_LEAVES = (SPHERE_LEAVES + TRIANGLE_LEAVES + TRIANGLE_TEXTURE_LEAVES
+                + TEXTURE_LEAVES + (IMAGE_LEAF,))
 
 
 def leaf(scene, name: str):
@@ -122,12 +148,38 @@ def _pad(a: np.ndarray, n: int, fill) -> np.ndarray:
     return out
 
 
+def _texture_row(m: api.Material):
+    """Denormalized (tex_ty, albedo2, tex_scale) for one material: solid
+    materials get ``(TEXTURE_SOLID, (0, 0, 0), 0.0)``; a texture's base
+    color rides the albedo row (``_base_color``)."""
+    a = getattr(m, "albedo", None)
+    if isinstance(a, api.Checker):
+        return api.TEXTURE_CHECKER, a.odd, a.scale
+    if isinstance(a, api.Marble):
+        return api.TEXTURE_MARBLE, (0.0, 0.0, 0.0), a.scale
+    if isinstance(a, api.ImageTexture):
+        return api.TEXTURE_IMAGE, (0.0, 0.0, 0.0), a.scale
+    return api.TEXTURE_SOLID, (0.0, 0.0, 0.0), 0.0
+
+
+def _base_color(a):
+    """A solid albedo, or a texture's base color (the checker's even color,
+    the marble color, white for an image: the bitmap is the color)."""
+    if isinstance(a, api.Checker):
+        return a.even
+    if isinstance(a, api.Marble):
+        return a.color
+    if isinstance(a, api.ImageTexture):
+        return (1.0, 1.0, 1.0)
+    return a
+
+
 def _material_row(m: api.Material):
     """Denormalized (albedo, fuzz, ior, type) for one material."""
     if isinstance(m, api.Lambertian):
-        return m.albedo, 0.0, 1.0, m.type_id
+        return _base_color(m.albedo), 0.0, 1.0, m.type_id
     if isinstance(m, api.Metal):
-        return m.albedo, m.fuzz, 1.0, m.type_id
+        return _base_color(m.albedo), m.fuzz, 1.0, m.type_id
     if isinstance(m, api.Dielectric):
         return (0.0, 0.0, 0.0), 0.0, m.ior, m.type_id
     if isinstance(m, api.DiffuseLight):
@@ -222,11 +274,12 @@ def _auto_tri_chunk(n_tris: int) -> int:
 
 
 def _compile_triangles(meshes, pad_to: int, spatial_sort: bool,
-                       partition: str = "kd") -> Dict[str, np.ndarray]:
-    """The triangle leaves (``TRIANGLE_LEAVES``) of ``meshes`` as numpy
-    arrays, padded to a multiple of ``pad_to`` with zero-edge slots; past
-    64 triangles, ``spatial_sort`` orders them by centroid as the JAX
-    package does (``kd`` groups of the auto chunk width, or Morton)."""
+                       partition: str = "kd", textured: bool = False) -> Dict[str, np.ndarray]:
+    """The triangle leaves (``TRIANGLE_LEAVES``, and ``TRIANGLE_TEXTURE_LEAVES``
+    when ``textured``) of ``meshes`` as numpy arrays, padded to a multiple
+    of ``pad_to`` with zero-edge slots; past 64 triangles, ``spatial_sort``
+    orders them by centroid as the JAX package does (``kd`` groups of the
+    auto chunk width, or Morton)."""
     t = sum(len(m) for m in meshes)
     tpad = max(pad_to, -(-max(t, 1) // pad_to) * pad_to)
     v0 = np.zeros((t, 3), np.float32)
@@ -236,10 +289,14 @@ def _compile_triangles(meshes, pad_to: int, spatial_sort: bool,
     fuzz = np.zeros((t,), np.float32)
     ior = np.ones((t,), np.float32)
     mat_ty = np.zeros((t,), np.int32)
+    tex_ty = np.zeros((t,), np.int32)
+    albedo2 = np.zeros((t, 3), np.float32)
+    tex_scale = np.zeros((t,), np.float32)
     k = 0
     for mesh in meshes:
         verts = np.asarray(mesh.vertices, np.float32)
         alb, fz, io, ty = _material_row(mesh.material)
+        tty, a2, tsc = _texture_row(mesh.material)
         tri = np.asarray(mesh.triangles, np.int32).reshape(-1, 3)
         n_m = tri.shape[0]
         if n_m == 0:
@@ -252,6 +309,9 @@ def _compile_triangles(meshes, pad_to: int, spatial_sort: bool,
         fuzz[k:k + n_m] = fz
         ior[k:k + n_m] = io
         mat_ty[k:k + n_m] = ty
+        tex_ty[k:k + n_m] = tty
+        albedo2[k:k + n_m] = a2
+        tex_scale[k:k + n_m] = tsc
         k += n_m
 
     if spatial_sort and t > 64:
@@ -262,9 +322,15 @@ def _compile_triangles(meshes, pad_to: int, spatial_sort: bool,
             order = morton_order(cent)
         v0, e1, e2, albedo = v0[order], e1[order], e2[order], albedo[order]
         fuzz, ior, mat_ty = fuzz[order], ior[order], mat_ty[order]
+        tex_ty, albedo2, tex_scale = tex_ty[order], albedo2[order], tex_scale[order]
 
     out = {}
-    for name, a in (("v0", v0), ("e1", e1), ("e2", e2), ("albedo", albedo)):
+    vectors = [("v0", v0), ("e1", e1), ("e2", e2), ("albedo", albedo)]
+    if textured:
+        vectors.append(("albedo2", albedo2))
+        out["tris.tex_ty"] = _pad(tex_ty, tpad, api.TEXTURE_SOLID)
+        out["tris.tex_scale"] = _pad(tex_scale, tpad, 0.0)
+    for name, a in vectors:
         a = _pad(a, tpad, 0.0)  # zero-edge padding is degenerate: never hits
         for j, c in enumerate("xyz"):
             out[f"tris.{name}.{c}"] = a[:, j]
@@ -272,6 +338,26 @@ def _compile_triangles(meshes, pad_to: int, spatial_sort: bool,
     out["tris.ior"] = _pad(ior, tpad, 1.0)
     out["tris.mat_ty"] = _pad(mat_ty, tpad, api.MATERIAL_NONE)
     return out
+
+
+def _image_texture(world: api.World):
+    """The scene's one ImageTexture, or None. Sphere materials only (meshes
+    carry no UVs), and at most one distinct image a scene (the compiled
+    scene carries one bitmap)."""
+    for m in world.meshes:
+        if isinstance(getattr(m.material, "albedo", None), api.ImageTexture):
+            raise ValueError("ImageTexture maps sphere UVs only; meshes carry no UVs")
+    imgs = []
+    for s in world.spheres:
+        a = getattr(s.material, "albedo", None)
+        if isinstance(a, api.ImageTexture) and a not in imgs:
+            imgs.append(a)
+    if len(imgs) > 1:
+        raise ValueError(
+            f"one ImageTexture per scene (got {len(imgs)} distinct); "
+            "pack shared maps into a single image"
+        )
+    return imgs[0] if imgs else None
 
 
 def compile_scene(
@@ -286,12 +372,9 @@ def compile_scene(
 
     ``spatial_sort``, ``partition`` and ``partition_chunk`` order the
     spheres and triangles as the JAX ``compile_scene`` does with the same
-    arguments (and no triangle BVH).
+    arguments (and no triangle BVH); a textured world's texture rows and
+    bitmap too.
     """
-    if world.texture_set:
-        raise NotImplementedError(
-            "textured materials are not supported by the PyTorch port yet"
-        )
     n = len(world.spheres)
     spheres = world.spheres
     if spatial_sort and n > 1:
@@ -305,10 +388,18 @@ def compile_scene(
     fuzz = np.zeros((n,), np.float32)
     ior = np.ones((n,), np.float32)
     mat_ty = np.zeros((n,), np.int32)
+    tex_ty = np.zeros((n,), np.int32)
+    albedo2 = np.zeros((n, 3), np.float32)
+    tex_scale = np.zeros((n,), np.float32)
     for i, s in enumerate(spheres):
         center[i] = s.center
         radius[i] = s.radius
         albedo[i], fuzz[i], ior[i], mat_ty[i] = _material_row(s.material)
+        tex_ty[i], albedo2[i], tex_scale[i] = _texture_row(s.material)
+    # Texture rows only on textured scenes (one switch for spheres and
+    # meshes), so an untextured scene has the leaves it had before.
+    textured = bool(world.texture_set)
+    img_tex = _image_texture(world)
 
     radius_sq = radius * radius
     center_p = _pad(center, npad, 0.0)
@@ -326,36 +417,57 @@ def compile_scene(
         "ior": _pad(ior, npad, 1.0),
         "mat_ty": _pad(mat_ty, npad, api.MATERIAL_NONE),
     }
+    if textured:
+        albedo2_p = _pad(albedo2, npad, 0.0)
+        arrays.update({
+            "tex_ty": _pad(tex_ty, npad, api.TEXTURE_SOLID),
+            "albedo2.x": albedo2_p[:, 0],
+            "albedo2.y": albedo2_p[:, 1],
+            "albedo2.z": albedo2_p[:, 2],
+            "tex_scale": _pad(tex_scale, npad, 0.0),
+        })
+    if img_tex is not None:
+        arrays[IMAGE_LEAF] = img_tex.data
     if world.meshes:
-        arrays.update(_compile_triangles(world.meshes, pad_to, spatial_sort, partition))
+        arrays.update(_compile_triangles(world.meshes, pad_to, spatial_sort, partition,
+                                         textured))
     return scene_from_numpy(arrays, device=device)
 
 
 def scene_from_numpy(arrays: Dict[str, np.ndarray], device="cpu") -> CompiledScene:
     """Build the port's scene from a compiled scene's arrays.
 
-    ``arrays`` maps each name of ``SPHERE_LEAVES``, and for a scene with
-    meshes each of ``TRIANGLE_LEAVES`` (and optionally ``"cam"``, the [19]
-    packed camera), to a numpy array: the leaves of a JAX ``CompiledScene``
-    carry across unchanged, so the same compiled world can be rendered by
-    both packages.
+    ``arrays`` maps each name of ``SPHERE_LEAVES``, for a scene with meshes
+    each of ``TRIANGLE_LEAVES``, for a textured scene each of
+    ``TEXTURE_LEAVES`` (and of ``TRIANGLE_TEXTURE_LEAVES`` with meshes),
+    and optionally ``IMAGE_LEAF`` (the [TH, TW, 3] bitmap) and ``"cam"``
+    (the [19] packed camera), to a numpy array: the leaves of a JAX
+    ``CompiledScene`` carry across unchanged, so the same compiled world
+    can be rendered by both packages.
     """
     has_tris = any(k in arrays for k in TRIANGLE_LEAVES)
-    missing = [k for k in (SCENE_LEAVES if has_tris else SPHERE_LEAVES) if k not in arrays]
+    textured = any(k in arrays for k in TEXTURE_LEAVES + TRIANGLE_TEXTURE_LEAVES)
+    need = SPHERE_LEAVES + (TRIANGLE_LEAVES if has_tris else ())
+    if textured:
+        need += TEXTURE_LEAVES + (TRIANGLE_TEXTURE_LEAVES if has_tris else ())
+    missing = [k for k in need if k not in arrays]
     if missing:
         raise KeyError(f"scene arrays lack {missing}")
     # np.array copies: the scene owns its memory whatever the caller holds.
-    t = lambda k, dt: torch.from_numpy(np.array(arrays[k], dtype=dt)).to(device)  # noqa: E731
-    f32 = np.float32
+    t = lambda k, dt: torch.from_numpy(np.array(arrays[k], dtype=dt, order="C")).to(device)  # noqa: E731
+    opt = lambda k, dt: t(k, dt) if k in arrays else None  # noqa: E731
+    f32, i32 = np.float32, np.int32
     v3 = lambda p: V3(t(f"{p}x", f32), t(f"{p}y", f32), t(f"{p}z", f32))  # noqa: E731
     tris = None
     if has_tris:
         tris = CompiledTriangles(
             v0=v3("tris.v0."), e1=v3("tris.e1."), e2=v3("tris.e2."),
             albedo=v3("tris.albedo."), fuzz=t("tris.fuzz", f32),
-            ior=t("tris.ior", f32), mat_ty=t("tris.mat_ty", np.int32),
+            ior=t("tris.ior", f32), mat_ty=t("tris.mat_ty", i32),
+            tex_ty=opt("tris.tex_ty", i32),
+            albedo2=v3("tris.albedo2.") if textured else None,
+            tex_scale=opt("tris.tex_scale", f32),
         )
-    cam = arrays.get("cam")
     return CompiledScene(
         center=v3("center."),
         radius=t("radius", f32),
@@ -363,7 +475,11 @@ def scene_from_numpy(arrays: Dict[str, np.ndarray], device="cpu") -> CompiledSce
         albedo=v3("albedo."),
         fuzz=t("fuzz", f32),
         ior=t("ior", f32),
-        mat_ty=t("mat_ty", np.int32),
+        mat_ty=t("mat_ty", i32),
         tris=tris,
-        cam=None if cam is None else t("cam", f32),
+        cam=opt("cam", f32),
+        tex_ty=opt("tex_ty", i32),
+        albedo2=v3("albedo2.") if textured else None,
+        tex_scale=opt("tex_scale", f32),
+        tex_image=opt(IMAGE_LEAF, f32),
     )

@@ -267,8 +267,7 @@ def obj_scene(path, material=None, ground_sphere: bool = False) -> World:
 
 def texture_scene() -> World:
     """Procedural-texture showcase (extension; RTiOW book-2 ch. 4-5 look):
-    checkered ground, marble center sphere, glass and metal flanks.
-    Textured: the PyTorch port does not render it yet."""
+    checkered ground, marble center sphere, glass and metal flanks."""
     return World(
         spheres=[
             Sphere(
@@ -326,8 +325,7 @@ def _earth_bitmap(th: int = 128, tw: int = 256) -> "np.ndarray":
 
 def earth_scene() -> World:
     """Image-texture showcase (RTiOW book-2 ch. 4.4's earth globe): a
-    sphere-UV-mapped bitmap (api.ImageTexture) over a checkered ground.
-    Textured: the PyTorch port does not render it yet."""
+    sphere-UV-mapped bitmap (api.ImageTexture) over a checkered ground."""
     from myraytracer_tpu_torch.scene.api import ImageTexture
 
     return World(

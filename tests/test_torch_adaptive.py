@@ -304,13 +304,14 @@ def test_session_backends_and_unsupported_options():
     # The estimator's modes are ported: sessions build with them.
     for kw in (dict(nee=True), dict(qmc=True), dict(rr=2)):
         assert port_session("reference", 1, **kw).backend_resolved == "torch"
-    with pytest.raises(NotImplementedError):
-        adaptive.AdaptiveSession(tpresets.get_scene("texture"), RenderConfig(
-            backend="torch", **KW))
+    # So are textures: a textured world's session renders.
+    s = adaptive.AdaptiveSession(tpresets.get_scene("texture"), RenderConfig(
+        backend="torch", **KW))
+    s.step()
+    assert torch.isfinite(s.framebuffer).all() and s.framebuffer.max() > 0
     cam = tpresets.reference_scene().camera
     assert callable(ktrace.make_adaptive_renderer(cam, 64, 32, 1, 1, trng.MAX_DEPTH + 1))
-    with pytest.raises(NotImplementedError):
-        ktrace.make_adaptive_renderer(cam, 64, 32, 1, 1, 4, texture_set=(1,))
+    assert callable(ktrace.make_adaptive_renderer(cam, 64, 32, 1, 1, 4, texture_set=(1, 3)))
 
 
 def test_run_budget_spends_within_the_budget():

@@ -127,20 +127,21 @@ def test_scene_from_numpy_round_trips_a_jax_mesh_scene(name):
         scene_from_numpy({k: v for k, v in arrays.items() if k != "tris.e2.y"})
 
 
-@pytest.mark.parametrize("name,refused_by", [
-    ("mesh", None),  # triangle meshes compile and render
-    ("cornell", None),  # quads with a DiffuseLight: emission renders too
-    ("texture", "compile"),
-    ("earth", "compile"),
-], ids=["mesh", "cornell", "texture", "earth"])
-def test_unsupported_worlds_raise(name, refused_by):
+@pytest.mark.parametrize("name", [
+    "mesh",  # triangle meshes compile and render
+    "cornell",  # quads with a DiffuseLight: emission renders too
+    "texture",  # checker and marble compile and render
+    "earth",  # so does an image texture
+])
+def test_unsupported_worlds_raise(name):
+    """Every preset but ``obj`` compiles and renders now."""
     world = tpresets.get_scene(name)
-    if refused_by == "compile":
-        with pytest.raises(NotImplementedError):
-            tcompile(world)
-        return
     scene = tcompile(world)
-    assert scene.has_triangles and scene.tris.padded_size >= world.triangle_count
+    if world.meshes:
+        assert scene.has_triangles and scene.tris.padded_size >= world.triangle_count
+    if world.texture_set:
+        assert scene.tex_ty is not None
+        assert (scene.tex_image is not None) == (name == "earth")
     RenderSession(world, RenderConfig(width=8, height=8, ray_depth=2)).step()
 
 

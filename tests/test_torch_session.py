@@ -152,30 +152,22 @@ def test_cli_rejects_unknown_scene():
     dict(rr=3),
     dict(texture_set=(1,)),
     dict(material_set=(1, 4)),
-    # Multi-frame buckets are ported; image textures (K7) are not.
+    # Image textures (K7) too.
     dict(texture_set=(3,)),
 ])
 def test_cuda_renderer_refuses_unsupported_features(kw):
-    """Only textures are refused: paged depth, NEE, QMC, Russian roulette
-    and emission build a renderer (launching it needs a GPU)."""
+    """Nothing is refused now: paged depth, NEE, QMC, Russian roulette,
+    emission and textures build a renderer (launching it needs a GPU)."""
     args = dict(cam=presets.reference_scene().camera, width=16, height=8,
                 samples_per_frame=1, ray_depth=4)
     args.update(kw)
-    if "texture_set" in kw:
-        with pytest.raises(NotImplementedError):
-            ktrace.make_renderer(**args)
-    else:
-        assert callable(ktrace.make_renderer(**args))
+    assert callable(ktrace.make_renderer(**args))
 
 
 # ``mesh`` renders since triangles were ported, ``cornell`` and ``light``
-# since emission was; the textured scenes are refused.
+# since emission was, ``texture`` since textures were.
 @pytest.mark.parametrize("name", ["cornell", "texture", "light"])
 def test_sessions_refuse_unsupported_scenes(name):
-    if name == "texture":
-        with pytest.raises(NotImplementedError):
-            dispatch.make_session(presets.get_scene(name), CFG)
-        return
     session = dispatch.make_session(presets.get_scene(name), CFG)
     assert torch.isfinite(session.step()).all()
 
