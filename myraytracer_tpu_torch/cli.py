@@ -6,16 +6,18 @@ rule, headless — ``--frames`` bounds the progressive loop and the result is
 written to ``--out``. Extensions: scene, seed, backend, output transfer,
 checkpoint and resume, frame batching (``--frame-batch``), adaptive
 sampling (``--adaptive``), the estimator's modes (``--nee``, ``--rr N``,
-``--qmc``), and a log line per step (frame, accumulated spp, ms, Mrays/s =
+``--qmc``), the output denoiser (``--denoise [N|auto]``) and feature images
+(``--aov``), and a log line per step (frame, accumulated spp, ms, Mrays/s =
 traced ray segments per second, shadow rays included).
 
 Sphere scenes, triangle meshes (``mesh``, ``mesh:N``), large sphere fields
 (``spheres:N``), the emissive scenes (``light``, ``cornell``) and the
 textured ones (``texture``: checker and marble; ``earth``: an image
 texture) render on both backends; the CUDA kernel sweeps them behind the
-JAX kernel's chunk gates and evaluates textures in the kernel. The JAX
-package's other flags (serving, interactive orbits, denoising, AOVs, OBJ
-input, sharding, ...) are not in the port yet.
+JAX kernel's chunk gates and evaluates textures in the kernel. The
+denoiser and the feature pass run on the session's device: on the GPU with
+``--backend cuda``. The JAX package's other flags (serving, interactive
+orbits, OBJ input, sharding, ...) are not in the port yet.
 """
 
 from __future__ import annotations
@@ -24,6 +26,7 @@ import argparse
 import json
 import logging
 import os
+import pathlib
 import sys
 import time
 
@@ -32,6 +35,24 @@ from myraytracer_tpu_torch.output.image import parse_gamma, write_image
 from myraytracer_tpu_torch.scene.presets import get_scene
 
 log = logging.getLogger("myraytracer_tpu_torch")
+
+_AOV_NAMES = ("albedo", "normal", "depth")
+
+
+def _denoise_value(s: str):
+    """--denoise value: an iteration count, or 'auto' (noise-scheduled,
+    render/denoise.py). argparse type callable."""
+    if s.strip().lower() == "auto":
+        return "auto"
+    try:
+        n = int(s)
+    except ValueError:
+        raise argparse.ArgumentTypeError(
+            f"expected an iteration count or 'auto', got {s!r}"
+        )
+    if n < 0:
+        raise argparse.ArgumentTypeError("iteration count must be >= 0 (or 'auto')")
+    return n
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -105,11 +126,108 @@ def build_parser() -> argparse.ArgumentParser:
         "re-rendered per round (default ~1/4 of the grid). Composes with "
         "--frame-batch and --checkpoint/--resume",
     )
+    p.add_argument(
+        "--denoise", type=_denoise_value, nargs="?", const=0, default=None,
+        metavar="ITERS|auto",
+        help="edge-avoiding a-trous wavelet denoise of the OUTPUT image "
+        "(render/denoise.py), guided by a primary-hit albedo/normal/depth "
+        "pass. Optional value = filter iterations (default 5; the support "
+        "doubles per iteration), or 'auto' = a count scheduled from the "
+        "framebuffer's own noise (raw once it is clean). A display transform "
+        "only: checkpoints keep the raw accumulation and no sample stream "
+        "changes. Composes with both backends and --adaptive",
+    )
+    p.add_argument(
+        "--aov", type=str, default=None, metavar="LIST",
+        help="comma list from {albedo,normal,depth}: write feature images "
+        "next to --out as <stem>.<aov><ext>, from the deterministic "
+        "primary-hit pass --denoise uses. u8 sinks encode linearly (normal "
+        "(n+1)/2, depth t/(1+t)); .pfm/.npy sinks carry the raw float values",
+    )
     p.add_argument("--checkpoint", default=None, help="save checkpoint here")
     p.add_argument("--resume", default=None, help="resume from checkpoint")
     p.add_argument("--log-level", default=None,
                    help="debug|info|warning|error (default info; MYRT_LOG env)")
     return p
+
+
+def _make_denoiser(denoise_arg, config, world, width, height, device):
+    """Build the output denoiser on ``device``, or None.
+
+    ``denoise_arg``: None = off, 0 = default iterations, N >= 1 = N
+    iterations, "auto" = noise-scheduled iterations. A display transform
+    bound to the world, camera and size; applied at the image sinks, never
+    to checkpoints.
+    """
+    if denoise_arg is None:
+        return None
+    from myraytracer_tpu_torch.render.denoise import Denoiser
+
+    auto = denoise_arg == "auto"
+    fixed = 0 if auto else denoise_arg
+    return Denoiser(
+        world, width, height, t_min=config.t_min, t_max=config.t_max,
+        auto=auto, device=device, **({"iterations": fixed} if fixed else {}),
+    )
+
+
+def _parse_aov_names(aov_arg):
+    """Validate a --aov comma list → channel names (SystemExit on junk)."""
+    names = [s.strip().lower() for s in aov_arg.split(",") if s.strip()]
+    bad = [n for n in names if n not in _AOV_NAMES]
+    if bad:
+        raise SystemExit(f"--aov: unknown channel(s) {bad}; choose from {_AOV_NAMES}")
+    return names
+
+
+def _aov_feature_pass(config, world, width, height, device, denoiser=None):
+    """The Denoiser whose primary-hit pass sources the AOVs: the active
+    --denoise instance when it was built from this world at this size, else
+    a new one on ``device``."""
+    if denoiser is not None and denoiser.world is world and (
+        denoiser.width, denoiser.height
+    ) == (width, height):
+        return denoiser
+    from myraytracer_tpu_torch.render.denoise import Denoiser
+
+    return Denoiser(world, width, height, t_min=config.t_min, t_max=config.t_max,
+                    device=device)
+
+
+def _aov_images(dn, cam, names, hdr=False):
+    """name → image dict from the feature pass. ``hdr`` keeps raw float
+    values (signed normals, world-unit depth); else display encodes
+    (normal (n+1)/2, depth t/(1+t) so sky→~1; albedo is already [0,1])."""
+    import numpy as np
+
+    albedo, normal, depth = (a.cpu().numpy() for a in dn.features(cam))
+    out = {}
+    for name in names:
+        if name == "albedo":
+            out[name] = albedo
+        elif name == "normal":
+            out[name] = normal if hdr else (normal * np.float32(0.5) + np.float32(0.5))
+        else:
+            out[name] = depth if hdr else np.repeat(
+                (depth / (1.0 + depth))[..., None], 3, axis=-1
+            )
+    return out
+
+
+def _write_aovs(aov_arg, out_path, config, world, width, height, device,
+                cam=None, denoiser=None):
+    """Write the AOV images next to ``--out`` as ``<stem>.<aov><ext>``, from
+    the feature pass of ``denoiser`` when --denoise is active (same size and
+    world), else from one computed here. u8 formats get linear encodes
+    (gamma 1.0); .pfm/.npy get the raw float buffers."""
+    names = _parse_aov_names(aov_arg)
+    dn = _aov_feature_pass(config, world, width, height, device, denoiser)
+    out = pathlib.Path(out_path)
+    hdr = out.suffix.lower() in (".pfm", ".npy")
+    for name, img in _aov_images(dn, cam, names, hdr=hdr).items():
+        p = out.with_name(f"{out.stem}.{name}{out.suffix}")
+        write_image(p, img, gamma=1.0)
+        log.info("aov %s → %s", name, p)
 
 
 def main(argv=None) -> int:
@@ -144,9 +262,13 @@ def main(argv=None) -> int:
         world = get_scene(args.scene, seed=config.seed)
     except KeyError as e:
         raise SystemExit(f"--scene: {e.args[0]}") from None
+    if args.aov:
+        _parse_aov_names(args.aov)  # a bad list fails before the render, not after
     if args.adaptive is not None:
         return _run_adaptive(args, config, world)
     session = make_session(world, config)
+    denoise = _make_denoiser(args.denoise, config, world, session.width, session.height,
+                             session.device)
     log.info(
         "rendering scene=%s %dx%d spp/frame=%d depth=%d frames=%d "
         "frame_batch=%d backend=%s nee=%s rr=%d qmc=%s",
@@ -178,8 +300,16 @@ def main(argv=None) -> int:
     if args.checkpoint:
         session.save_checkpoint(args.checkpoint)
         log.info("checkpoint saved to %s", args.checkpoint)
-    write_image(args.out, session.framebuffer.cpu().numpy(), gamma=args.gamma)
+    final = session.framebuffer
+    if denoise is not None:
+        final = denoise(final, session.scene.cam, spp=session.accumulated_spp)
+        log.info("denoised: %d iterations%s", denoise.effective_iterations(
+            session.accumulated_spp), " (auto)" if denoise.auto else "")
+    write_image(args.out, final.cpu().numpy(), gamma=args.gamma)
     log.info("wrote %s", args.out)
+    if args.aov:
+        _write_aovs(args.aov, args.out, config, world, session.width, session.height,
+                    session.device, cam=session.scene.cam, denoiser=denoise)
     return 0
 
 
@@ -203,6 +333,8 @@ def _run_adaptive(args, config: RenderConfig, world) -> int:
             config = config.replace(frame_batch=int(saved))
 
     session = AdaptiveSession(world, config, n_sel=max(0, args.adaptive))
+    denoise = _make_denoiser(args.denoise, config, world, session.width, session.height,
+                             session.device)
     if args.resume:
         session.load_checkpoint(args.resume)
         log.info(
@@ -239,7 +371,7 @@ def _run_adaptive(args, config: RenderConfig, world) -> int:
                 (segs - segs_sync) / dt / 1e6,
             )
             t_sync, segs_sync = time.perf_counter(), segs
-    final = session.framebuffer.cpu().numpy()
+    final = session.framebuffer
     segs = session.segments_traced - segs_start
     dt = time.perf_counter() - t_start
     smap = session.spp_map
@@ -253,8 +385,18 @@ def _run_adaptive(args, config: RenderConfig, world) -> int:
     if args.checkpoint:
         session.save_checkpoint(args.checkpoint)
         log.info("adaptive checkpoint saved to %s", args.checkpoint)
-    write_image(args.out, final, gamma=args.gamma)
+    if denoise is not None:
+        # Adaptive spp is per pixel; the budget's average is the scale a
+        # global filter's schedule wants.
+        spp = session.samples_spent // (session.width * session.height)
+        final = denoise(final, session.scene.cam, spp=spp)
+        log.info("denoised: %d iterations%s", denoise.effective_iterations(spp),
+                 " (auto)" if denoise.auto else "")
+    write_image(args.out, final.cpu().numpy(), gamma=args.gamma)
     log.info("wrote %s", args.out)
+    if args.aov:
+        _write_aovs(args.aov, args.out, config, world, session.width, session.height,
+                    session.device, cam=session.scene.cam, denoiser=denoise)
     return 0
 
 

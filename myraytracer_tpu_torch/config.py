@@ -174,6 +174,10 @@ class KernelConfig:
       prologue; ``TRI_CHUNK``: triangles per chunk (0 = the auto ladder,
       ``resolve_tri_chunk``).
     * ``SUPER``: chunks under one outer gate, from ``SUPER_MIN`` chunks on.
+    * ``SMEM_LIMIT`` (the port's own): the shared memory in bytes a launch
+      may stage its tables in; None is the card's opt-in limit. A smaller
+      value sends tables to global memory (``kernels.trace.stage_plan``), so
+      that a small scene can take every staging route.
     """
 
     UNROLL_MAX: int = 64
@@ -183,6 +187,7 @@ class KernelConfig:
     SUPER: int = 8
     SUPER_MIN: int = 24
     FORCE_CULL: Optional[bool] = None
+    SMEM_LIMIT: Optional[int] = None
 
     def cull_spheres(self, n_spheres: int) -> bool:
         """Whether a padded sphere table of ``n_spheres`` slots is swept

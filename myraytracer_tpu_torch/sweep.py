@@ -11,9 +11,13 @@ final scene at 1200x800, depth 50 (PERF.md):
 * windows: an adaptive session at spp 8 with F in WINDOWS windows a round
   -- kernel ms per window of one round's launch, and the session's ms per
   round (launch, fold and scores, host clock to a device sync) with its
-  Mrays/s.
+  Mrays/s;
+* staging: the uniform kernel at spp 1 on STAGING_SCENES with the gate
+  tables staged in shared memory (the default plan) and left in global
+  memory (``KernelConfig(SMEM_LIMIT=0)``: nothing staged), in turns -- what
+  the kernel variant that reads its gates from global memory costs.
 
-Both sweeps run PASSES times in turn, so drift spreads over every point.
+The sweeps run PASSES times in turn, so drift spreads over every point.
 Each measurement is one JSON line on stdout; the line before them gives the
 card's name and power limit as ``nvidia-smi`` reports them. It needs a CUDA
 GPU and exits non-zero without one.
@@ -28,7 +32,7 @@ import time
 
 import torch
 
-from myraytracer_tpu_torch.config import RenderConfig
+from myraytracer_tpu_torch.config import KernelConfig, RenderConfig
 from myraytracer_tpu_torch.core import rng as crng
 from myraytracer_tpu_torch.kernels import trace
 from myraytracer_tpu_torch.render.adaptive import (
@@ -43,6 +47,7 @@ WIDTH, HEIGHT, DEPTH = 1200, 800, 50
 FRAMES = (1, 4, 16, 64)
 WINDOWS = (1, 2, 4, 8, 16)
 PASSES = 2
+STAGING_SCENES = ("final", "spheres:100", "mesh:5")
 
 
 def card() -> str:
@@ -119,12 +124,41 @@ def adaptive_ms(windows: int, rounds: int = 3):
     return kern / windows, dt * 1e3 / rounds, segs / dt / 1e6, s.n_sel
 
 
+def staging_ms(name: str, reps: int = 5, width: int = WIDTH, height: int = HEIGHT,
+               depth: int = DEPTH) -> dict:
+    """The uniform kernel on scene ``name`` at spp 1 with the default
+    staging plan and with nothing staged (gate and primitive tables read
+    from global memory), ``reps`` one-launch CUDA-event times each, in
+    turns, each after a warm-up launch. The two launches must be bitwise equal.
+    Returns the plans (gates, spheres, triangles, bytes) and the times."""
+    scene, cam, sky = scene_args(name, width, height, "cuda")
+    key = crng.key_from_seed(0)
+    tables = {"staged": trace.gate_tables(scene),
+              "global": trace.gate_tables(scene, KernelConfig(SMEM_LIMIT=0))}
+    out, ms = {}, {k: [] for k in tables}
+
+    def launch(k):
+        out[k] = trace.trace_spheres(scene, cam, key, width, height, 0, height, 0, 1, depth,
+                                     1e-3, 1e4, sky, tables=tables[k])
+
+    for _ in range(reps):
+        for k in tables:
+            ms[k].append(cuda_ms(lambda: launch(k), 1))
+    if not all(torch.equal(a, b) for a, b in zip(out["staged"], out["global"])):
+        raise AssertionError(f"{name}: the launch that stages nothing differs from the default")
+    return {"scene": name, "width": width, "height": height, "depth": depth,
+            "plan": {k: [int(v) for v in trace.staging_of(t, "cuda")] for k, t in tables.items()},
+            "ms": ms}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("sweep: no CUDA GPU", file=sys.stderr)
         return 2
     print(card(), flush=True)
     for rep in range(PASSES):
+        for name in STAGING_SCENES:
+            print(json.dumps({"sweep": "staging", "rep": rep, **staging_ms(name)}), flush=True)
         for k in FRAMES:
             ms, mrays = frame_ms(k)
             print(json.dumps({"sweep": "frames", "rep": rep, "K": k, "spp": 1,

@@ -64,3 +64,89 @@ def test_cli_adaptive_cuda_never_renders_on_the_cpu(tmp_path):
         cli.main(["--backend", "cuda", "--adaptive", "--width", "64", "--height", "32",
                   "--out", str(out)])
     assert not out.exists()
+
+
+# -- the output denoiser and the feature images, against the JAX CLI's files --
+
+_SMALL = ["--scene", "three-sphere", "--width", "64", "--height", "32",
+          "--samples-per-frame", "2", "--ray-depth", "4", "--frames", "2"]
+
+
+def _both_clis(tmp_path, flags, suffix=".png"):
+    """The port's CLI on the plain integrator and the JAX CLI on its jnp
+    integrator with the same flags; returns both output paths."""
+    from myraytracer_tpu import cli as jcli
+
+    got, want = tmp_path / f"t{suffix}", tmp_path / f"j{suffix}"
+    assert cli.main(["--backend", "torch"] + _SMALL + flags + ["--out", str(got)]) == 0
+    assert jcli.main(["--backend", "jnp"] + _SMALL + flags + ["--out", str(want)]) == 0
+    return got, want
+
+
+def _levels_apart(a, b):
+    return np.abs(a.astype(np.int32) - b.astype(np.int32))
+
+
+@pytest.mark.parametrize("flags", [["--denoise"], ["--denoise", "2"], ["--denoise", "auto"]],
+                         ids=["default", "2", "auto"])
+def test_cli_denoise_writes_the_jax_clis_image(tmp_path, flags):
+    """The denoised PNG against the JAX CLI's: the jitted JAX integrator
+    contracts multiply-adds, so a u8 level may round the other way; at most
+    one level apart on at most 2% of the values (measured: 0 to 0.3%)."""
+    raw = tmp_path / "raw.png"
+    assert cli.main(["--backend", "torch"] + _SMALL + ["--out", str(raw)]) == 0
+    got, want = _both_clis(tmp_path, flags)
+    a, b = read_png(got), read_png(want)
+    assert a.shape == b.shape == (32, 64, 3)
+    d = _levels_apart(a, b)
+    assert d.max() <= 1 and (d > 0).mean() <= 0.02
+    assert not np.array_equal(a, read_png(raw))  # the filter ran
+
+
+def test_cli_denoise_keeps_checkpoints_raw(tmp_path):
+    ck_a, ck_b = tmp_path / "a.npz", tmp_path / "b.npz"
+    base = ["--backend", "torch"] + _SMALL
+    assert cli.main(base + ["--out", str(tmp_path / "a.png"), "--checkpoint", str(ck_a)]) == 0
+    assert cli.main(base + ["--denoise", "--out", str(tmp_path / "b.png"),
+                            "--checkpoint", str(ck_b)]) == 0
+    with np.load(ck_a) as a, np.load(ck_b) as b:
+        np.testing.assert_array_equal(a["framebuffer"], b["framebuffer"])
+    assert (tmp_path / "a.png").read_bytes() != (tmp_path / "b.png").read_bytes()
+
+
+def test_cli_aov_writes_the_jax_clis_images(tmp_path):
+    """``<stem>.<aov><ext>`` next to --out: u8 encodes within one level of
+    the JAX CLI's, and the raw float sinks within a measured bar: the JAX
+    CLI's feature pass runs jitted, where XLA contracts multiply-adds
+    (measured: normals up to 3.1e-6 apart, held to atol 1e-5; depth held to
+    rtol 2e-5)."""
+    got, want = _both_clis(tmp_path, ["--aov", "albedo,normal,depth"])
+    for name in ("albedo", "normal", "depth"):
+        a = read_png(got.with_name(f"t.{name}.png"))
+        b = read_png(want.with_name(f"j.{name}.png"))
+        assert a.shape == (32, 64, 3) and _levels_apart(a, b).max() <= 1, name
+        assert (a != b).mean() <= 0.01, name
+    got, want = _both_clis(tmp_path, ["--aov", "normal,depth"], suffix=".npy")
+    assert not got.with_name("t.albedo.npy").exists()
+    np.testing.assert_allclose(np.load(got.with_name("t.normal.npy")),
+                               np.load(want.with_name("j.normal.npy")), rtol=0, atol=1e-5)
+    np.testing.assert_allclose(np.load(got.with_name("t.depth.npy")),
+                               np.load(want.with_name("j.depth.npy")), rtol=2e-5, atol=0)
+
+
+def test_cli_denoise_and_aov_compose_with_adaptive(tmp_path):
+    out = tmp_path / "a.png"
+    assert cli.main(BASE + ["--adaptive", "1", "--frames", "2", "--denoise", "auto", "--aov",
+                            "depth", "--out", str(out)]) == 0
+    assert read_png(out).shape == read_png(tmp_path / "a.depth.png").shape == (64, 128, 3)
+
+
+def test_cli_rejects_bad_denoise_and_aov_values(tmp_path):
+    out = tmp_path / "x.png"
+    with pytest.raises(SystemExit):
+        cli.main(BASE + ["--denoise", "-1", "--out", str(out)])
+    with pytest.raises(SystemExit):
+        cli.main(BASE + ["--denoise", "many", "--out", str(out)])
+    with pytest.raises(SystemExit, match="unknown channel"):
+        cli.main(BASE + ["--aov", "albedo,beauty", "--out", str(out)])
+    assert not out.exists()

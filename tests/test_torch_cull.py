@@ -236,3 +236,103 @@ def test_adaptive_oracle_on_a_mesh_is_the_uniform_render():
                                       world.ambient, tables=tables)
     assert torch.equal(sums[0, 0], img) and not sums[0, 1].any()
     assert torch.equal(segs[0], isegs)
+
+
+# -- which tables a launch stages in shared memory (kernels.trace.stage_plan) --
+
+H100_SMEM = 232_448  # a block's opt-in shared memory on an H100, bytes
+DEFAULT = KernelConfig()
+
+
+def _table_bytes(n_spheres, n_tris, cfg=DEFAULT):
+    """(gate, sphere, triangle) table bytes of a scene of ``n_spheres``
+    spheres and ``n_tris`` triangles, as ``gate_tables`` lays them out."""
+    chunks = -(-max(0, n_spheres - ktrace.LEADERS) // cfg.CULL_CHUNK)
+    slots = ktrace.LEADERS + chunks * cfg.CULL_CHUNK
+    boxes = 0
+    if cfg.cull_spheres(slots):
+        boxes += chunks + (-(-chunks // cfg.SUPER) if chunks >= cfg.SUPER_MIN else 0)
+    tri_slots = 0
+    if n_tris:
+        width = resolve_tri_chunk(cfg, n_tris)
+        tchunks = -(-n_tris // width)
+        tri_slots = tchunks * width
+        if cfg.cull_triangles(tri_slots):
+            boxes += tchunks + (-(-tchunks // cfg.SUPER) if tchunks >= cfg.SUPER_MIN else 0)
+    return 24 * boxes, 4 * ktrace.TABLE_ROWS * slots, 4 * ktrace.TRI_ROWS * tri_slots
+
+
+@pytest.mark.parametrize("sizes,limit,want", [
+    ((100, 200, 300), 1000, (True, True, True, 600)),     # everything fits
+    ((100, 200, 300), 599, (True, True, False, 300)),     # the triangle table does not
+    ((100, 200, 300), 299, (True, False, False, 100)),    # nor the sphere table
+    ((100, 200, 300), 99, (False, False, False, 0)),      # nothing does
+    ((700, 200, 300), 600, (False, True, True, 500)),     # gates past the limit: global
+    ((700, 200, 0), 600, (False, True, False, 200)),      # no triangles: nothing to stage
+    ((0, 200, 300), 600, (False, True, True, 500)),       # no gates
+    ((100, 600, 300), 600, (True, False, True, 400)),     # a later table may still fit
+    ((600, 0, 0), 600, (True, False, False, 600)),        # exactly the limit fits
+])
+def test_stage_plan_stages_in_order_while_the_total_fits(sizes, limit, want):
+    plan = ktrace.stage_plan(*sizes, limit)
+    assert tuple(plan) == want and plan.smem_bytes <= limit
+    staged = [b for b, on in zip(sizes, plan[:3]) if on]
+    assert plan.smem_bytes == sum(staged)
+
+
+@pytest.mark.parametrize("name,n_spheres,n_tris,gate_kb", [
+    ("spheres:322", 414_737, 0, 227.9),  # the sphere field whose gates alone pass 227 KB
+    ("mesh:7", 1, 409_614, 675.1),
+])
+def test_gates_past_the_limit_go_to_global_with_the_primitive_tables(name, n_spheres, n_tris,
+                                                                      gate_kb):
+    gate, sph, tri = _table_bytes(n_spheres, n_tris)
+    assert gate / 1024 == pytest.approx(gate_kb, abs=0.1) and gate > H100_SMEM, name
+    plan = ktrace.stage_plan(gate, sph, tri, H100_SMEM)
+    assert plan.smem_bytes <= H100_SMEM
+    if n_tris == 0:  # nothing fits: every table is read from global memory
+        assert tuple(plan) == (False, False, False, 0)
+    else:  # the one-sphere table (56 slots) still fits; gates and triangles do not
+        assert tuple(plan) == (False, True, False, sph)
+
+
+@pytest.mark.parametrize("name,n_spheres,n_tris,want", [
+    ("final", 486, 0, (True, True, False)),
+    ("spheres:100", 40_001, 0, (True, False, False)),
+    ("mesh:5", 1, 25_614, (True, True, False)),
+    ("mesh:3", 1, 1_280 + 2, (True, True, True)),
+])
+def test_tables_that_fit_are_staged(name, n_spheres, n_tris, want):
+    plan = ktrace.stage_plan(*_table_bytes(n_spheres, n_tris), H100_SMEM)
+    assert tuple(plan[:3]) == want, name
+    assert 0 < plan.smem_bytes <= H100_SMEM
+
+
+def test_stage_plan_never_passes_any_limit():
+    rng = np.random.RandomState(0)
+    for _ in range(500):
+        sizes = [int(v) for v in rng.randint(0, 400_000, 3)]
+        limit = int(rng.randint(0, 300_000))
+        plan = ktrace.stage_plan(*sizes, limit)
+        assert plan.smem_bytes <= limit
+        assert plan.smem_bytes == sum(b for b, on in zip(sizes, plan[:3]) if on)
+
+
+def test_staging_of_reads_the_scenes_tables_and_the_configs_limit():
+    """``_table_bytes`` is the layout ``gate_tables`` builds, and a
+    ``SMEM_LIMIT`` forces each route on a small scene."""
+    world, scene = _compiled("mesh")
+    base = ktrace.gate_tables(scene, TWO_LEVEL)
+    sw = dict(zip(ktrace.SWEEP_FIELDS, base.sweep))
+    gate = 4 * (base.boxes.numel() - 1)
+    sph, tri = 4 * base.table.numel(), 4 * base.tri_table.numel()
+    assert gate == 24 * (sw["n_chunks"] + sw["n_super"] + sw["tn_chunks"] + sw["tn_super"]) > 0
+    assert base.smem_limit is None
+    for limit, want in ((gate + sph + tri, (True, True, True)), (gate + sph, (True, True, False)),
+                        (gate, (True, False, False)), (0, (False,) * 3)):
+        tables = ktrace.gate_tables(scene, KernelConfig(
+            **{**TWO_LEVEL.__dict__, "SMEM_LIMIT": limit}))
+        assert tables.smem_limit == limit
+        plan = ktrace.staging_of(tables, "cpu")
+        assert tuple(plan[:3]) == want and plan.smem_bytes <= limit, limit
+        assert torch.equal(tables.boxes, base.boxes)  # the limit changes no table

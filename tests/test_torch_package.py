@@ -5,6 +5,7 @@ import pathlib
 import subprocess
 import sys
 
+from myraytracer_tpu_torch.kernels import build as kbuild
 from myraytracer_tpu_torch.kernels import trace as ktrace
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
@@ -20,7 +21,13 @@ s = make_session(get_scene("defocus"), RenderConfig(width=8, height=4, ray_depth
 fb = s.run(1)
 assert fb.shape == (4, 8, 3) and float(fb.mean()) > 0
 import myraytracer_tpu_torch.cli, myraytracer_tpu_torch.sweep
-import myraytracer_tpu_torch.kernels.trace
+import myraytracer_tpu_torch.kernels.trace, myraytracer_tpu_torch.kernels.build
+from myraytracer_tpu_torch import microbench, mxu_probe
+from myraytracer_tpu_torch.kernels import probes
+from myraytracer_tpu_torch.render.denoise import Denoiser
+assert probes.micro("carry-1-baseline", 1, device="cpu").shape == (1, 16, 128)
+d = Denoiser(get_scene("defocus"), 8, 4, iterations=1, device="cpu")
+assert d(fb, s.scene.cam).shape == (4, 8, 3)
 from myraytracer_tpu_torch.render.adaptive import AdaptiveSession
 a = AdaptiveSession(get_scene("defocus"), RenderConfig(width=8, height=4, ray_depth=3,
                                                        backend="torch"))
@@ -42,8 +49,25 @@ def test_port_imports_no_jax():
     assert "LOADED []" in res.stdout, res.stdout
 
 
+def test_chip_smoke_imports_no_jax():
+    """The smoke script names neither JAX nor the JAX package in an import,
+    and it refuses to run once ``jax`` is loaded."""
+    import ast
+
+    tree = ast.parse((REPO / "chip_smoke.py").read_text())
+    names = []
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names += [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom):
+            names.append(node.module or "")
+    roots = {n.split(".")[0] for n in names}
+    assert "myraytracer_tpu_torch" in roots
+    assert not roots & {"jax", "jaxlib", "myraytracer_tpu", "tools"}, roots
+
+
 def test_nvcc_command_targets_hopper_without_fast_math():
-    cmd = ktrace.nvcc_command("nvcc", ktrace.SOURCE, pathlib.Path("out.so"))
+    cmd = kbuild.nvcc_command("nvcc", ktrace.SOURCE, pathlib.Path("out.so"))
     text = " ".join(cmd)
     assert "arch=compute_90a,code=sm_90a" in text
     assert "-fmad=false" in cmd
@@ -53,7 +77,24 @@ def test_nvcc_command_targets_hopper_without_fast_math():
 
 
 def test_build_is_keyed_by_source_and_flags():
-    lib = ktrace.library_path()
+    lib = kbuild.library_path(ktrace.SOURCE)
     assert lib.parent == REPO / "build" / "kernels"
     assert lib.name.startswith("trace_") and lib.suffix == ".so"
-    assert ktrace.library_path() == lib  # stable for one source
+    assert kbuild.library_path(ktrace.SOURCE) == lib  # stable for one source
+
+
+def test_every_source_builds_the_same_way():
+    """The probes' source is compiled like the trace kernels': the same
+    flags, a library keyed by source and flags beside its ptxas report."""
+    from myraytracer_tpu_torch.kernels import probes
+
+    assert probes.SOURCE.exists() and probes.SOURCE.parent == ktrace.SOURCE.parent == kbuild.CSRC
+    lib = kbuild.library_path(probes.SOURCE)
+    assert lib.parent == REPO / "build" / "kernels"
+    assert lib.name.startswith("probes_") and lib.suffix == ".so"
+    assert lib != kbuild.library_path(ktrace.SOURCE)
+    assert kbuild.library_path(probes.SOURCE, ("-O0",)) != lib  # the flags are in the key
+    cmd = kbuild.nvcc_command("nvcc", probes.SOURCE, lib)
+    assert cmd[1:-3] == list(kbuild.NVCC_FLAGS) and cmd[-1] == str(probes.SOURCE)
+    assert {k.source for k in probes.KERNELS.values()} == {probes.SOURCE}
+    assert ktrace.KERNEL.source == ktrace.ADAPTIVE.source == ktrace.SOURCE
