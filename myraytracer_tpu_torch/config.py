@@ -27,9 +27,9 @@ DEFAULT_HEIGHT = 360
 # Auto batching on the CUDA kernels, from the sweeps on an NVIDIA H100 in
 # PERF.md (final scene, 1200x800, depth 50). The uniform kernel takes frames
 # until a launch holds about CUDA_FRAME_WINDOW samples per pixel: at spp 1,
-# 16 frames a launch cut the time per frame from 11.05 ms to 8.5 ms with no
-# gates and from 2.26 ms to 1.87-1.93 ms with the gated sweep, and 64 frames
-# cut it by at most 3.5% more for 4x the bucket memory. An adaptive
+# 16 frames a launch run a frame in about half the time of a one-frame
+# launch (whose last paths leave the card idle while the queue drains), and
+# 64 frames cut it by 3.5-5% more for 4x the bucket memory. An adaptive
 # round takes windows until it holds about CUDA_ADAPTIVE_WINDOW samples, at
 # most CUDA_ADAPTIVE_CAP windows (the largest count measured): at spp 8 the
 # session's rate rose up to 16 windows, as the per-round score pass spreads
@@ -116,7 +116,7 @@ class RenderConfig:
     def resolve_frame_batch(self, backend: str) -> int:
         """Frames per device call. Auto (0) batches toward a
         ``CUDA_FRAME_WINDOW``-sample launch on the CUDA kernel, where one
-        frame at small spp waits on each block's slowest path, and stays
+        frame at small spp idles the card while its last paths end, and stays
         at one frame on the plain torch backend. Never more frames than
         ``max_frames`` asks for: the batch shrinks to a ceil split."""
         if self.frame_batch > 0:

@@ -176,3 +176,11 @@ def test_pack_table_layout():
     assert table.dtype == torch.float32 and table.is_contiguous()
     assert torch.equal(table[4], scene.radius_sq)
     assert torch.equal(table[10], scene.mat_ty.to(torch.float32))
+
+
+def test_launch_queue_is_a_fresh_int32_zero():
+    """A launch's tile counter: one int32 zero on the launch's device, a
+    new tensor each launch, so that two launches in a row start equal."""
+    a, b = ktrace._queue("cpu"), ktrace._queue("cpu")
+    assert a.dtype == torch.int32 and tuple(a.shape) == (1,) and int(a) == 0
+    assert a.device.type == "cpu" and a.data_ptr() != b.data_ptr()
