@@ -97,9 +97,10 @@ def build_parser() -> argparse.ArgumentParser:
     )
     p.add_argument(
         "--backend", choices=["auto", "cuda", "torch"], default="auto",
-        help="cuda: the CUDA kernel on the GPU (never falls back to the CPU); "
-        "torch: the plain PyTorch integrator on the CPU; auto: cuda when a "
-        "GPU is present, else torch",
+        help="cuda: the CUDA kernels on the GPU (never falls back to the CPU; "
+        "without a GPU it raises); torch: the plain PyTorch integrator on the "
+        "CPU; auto: cuda. Left at auto, the MYRT_BACKEND env var overrides "
+        "(the analog of the reference's WGPU_BACKEND override, lib.rs:322)",
     )
     p.add_argument(
         "--gamma", type=parse_gamma, default=2.0, metavar="G|srgb|aces",
@@ -241,6 +242,11 @@ def main(argv=None) -> int:
     )
     if args.frames < 1:
         raise SystemExit(f"--frames must be >= 1, got {args.frames}")
+    backend = args.backend
+    if backend == "auto" and os.environ.get("MYRT_BACKEND"):
+        backend = os.environ["MYRT_BACKEND"]
+        if backend not in ("auto", "cuda", "torch"):
+            raise SystemExit(f"MYRT_BACKEND={backend!r}: not auto|cuda|torch")
     config = RenderConfig(
         width=args.width,
         height=args.height,
@@ -249,7 +255,7 @@ def main(argv=None) -> int:
         max_framebuffer_weight=args.max_framebuffer_weight,
         seed=args.seed,
         gamma=args.gamma,
-        backend=args.backend,
+        backend=backend,
         frame_batch=args.frame_batch,
         max_frames=args.frames,
         nee=args.nee,

@@ -244,10 +244,9 @@ class AdaptiveSession:
     A step renders ``n_sel`` chosen blocks of ``samples_per_frame`` samples
     in each of ``windows`` windows; ``run_budget(total)`` spends a total
     per-image sample budget (in units of uniform frames) and returns the
-    framebuffer. Sessions checkpoint and resume exactly. Backend ``auto``
-    resolves to ``cuda`` (the CUDA adaptive kernel) when a GPU is present,
-    else ``torch`` (the plain oracle on the CPU); ``cuda`` without a GPU
-    raises.
+    framebuffer. Sessions checkpoint and resume exactly. Backends ``auto``
+    and ``cuda`` run the CUDA adaptive kernel (and raise without a GPU),
+    ``torch`` the plain oracle on the CPU.
     """
 
     def __init__(

@@ -30,7 +30,6 @@ import torch
 from myraytracer_tpu_torch.config import RenderConfig
 from myraytracer_tpu_torch.core import rng as crng
 from myraytracer_tpu_torch.render.camera import pack_camera
-from myraytracer_tpu_torch.render.integrator import make_renderer
 from myraytracer_tpu_torch.render.lights import extract_lights
 from myraytracer_tpu_torch.scene import api
 from myraytracer_tpu_torch.scene.compile import SCENE_LEAVES, compile_scene, leaf
@@ -104,9 +103,10 @@ def scene_fingerprint(scene) -> str:
 
 
 def resolve_device_backend(backend: str) -> str:
-    """``auto`` → ``cuda`` when a GPU is present, else ``torch``."""
+    """``auto`` → ``cuda``: the port renders on the card unless the caller
+    names ``torch`` (the plain integrator on the CPU)."""
     if backend == "auto":
-        return "cuda" if torch.cuda.is_available() else "torch"
+        return "cuda"
     if backend not in ("cuda", "torch"):
         raise ValueError(f"unknown backend {backend!r}: use auto|cuda|torch")
     return backend
@@ -116,10 +116,11 @@ class RenderSession:
     """Progressive accumulation over frames of ``samples_per_frame`` samples.
 
     ``renderer_factory`` builds the frame renderer (``make_renderer`` of
-    ``render.integrator`` or ``kernels.trace``); by default the plain
-    integrator on the CPU, recorded as backend ``torch``. With a factory,
-    the config's backend names the path (``auto`` resolves like
-    ``dispatch.resolve_backend``) and ``cuda`` places the session on the GPU.
+    ``render.integrator`` or ``kernels.trace``). By default the config's
+    backend picks it through ``dispatch``: ``auto`` and ``cuda`` render with
+    the CUDA kernel on the GPU (and raise without one), ``torch`` with the
+    plain integrator on the CPU. The recorded backend is the one that
+    renders (checkpoint provenance).
     """
 
     def __init__(
@@ -132,9 +133,10 @@ class RenderSession:
         self.config = config
         self.width, self.height = config.resolve_size()
         if renderer_factory is None:
-            # The default factory IS the plain integrator: recording another
-            # backend would let a later resume mix two streams.
-            resolved = "torch"
+            from myraytracer_tpu_torch.render import dispatch
+
+            resolved = dispatch.resolve_backend(config)
+            renderer_factory = dispatch.renderer_factory(resolved)
         else:
             resolved = resolve_device_backend(config.backend)
         self.backend_resolved = resolved
@@ -150,9 +152,8 @@ class RenderSession:
             ).to(self.device))
         self.key = crng.key_from_seed(config.seed)
 
-        factory = renderer_factory or make_renderer
         self.frame_batch = config.resolve_frame_batch(resolved)
-        self._render = factory(
+        self._render = renderer_factory(
             world.camera,
             self.width,
             self.height,

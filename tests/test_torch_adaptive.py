@@ -296,9 +296,12 @@ def test_cursor_headroom_counts_rounds_before_set_camera(tmp_path):
 
 
 def test_session_backends_and_unsupported_options():
-    assert port_session("reference", 1, backend="auto").backend_resolved == "torch"
-    with pytest.raises(RuntimeError, match="CUDA GPU"):
-        port_session("reference", 1, backend="cuda")
+    if torch.cuda.is_available():
+        assert port_session("reference", 1, backend="auto").backend_resolved == "cuda"
+    else:
+        for backend in ("auto", "cuda"):
+            with pytest.raises(RuntimeError, match="CUDA GPU"):
+                port_session("reference", 1, backend=backend)
     with pytest.raises(NotImplementedError):
         port_session("reference", 1, shard="tiles")
     # The estimator's modes are ported: sessions build with them.

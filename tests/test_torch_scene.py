@@ -142,7 +142,7 @@ def test_unsupported_worlds_raise(name):
     if world.texture_set:
         assert scene.tex_ty is not None
         assert (scene.tex_image is not None) == (name == "earth")
-    RenderSession(world, RenderConfig(width=8, height=8, ray_depth=2)).step()
+    RenderSession(world, RenderConfig(width=8, height=8, ray_depth=2, backend="torch")).step()
 
 
 def test_obj_scene_raises():

@@ -113,7 +113,15 @@ def test_set_camera_resets_accumulation():
 
 
 def test_auto_backend_is_torch_without_a_gpu():
-    s = dispatch.make_session(presets.reference_scene(), CFG.replace(backend="auto"))
+    """``auto`` is the card: without a GPU it raises and names ``torch``,
+    which a caller asks for to render on the CPU."""
+    if torch.cuda.is_available():
+        s = dispatch.make_session(presets.reference_scene(), CFG.replace(backend="auto"))
+        assert s.backend_resolved == "cuda" and s.device.type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match='--backend torch .backend="torch".'):
+            dispatch.make_session(presets.reference_scene(), CFG.replace(backend="auto"))
+    s = dispatch.make_session(presets.reference_scene(), CFG)
     assert s.backend_resolved == "torch" and s.device.type == "cpu"
 
 
@@ -196,3 +204,49 @@ def test_sessions_sort_and_fingerprint_as_the_jax_sessions(name):
         assert jfingerprint(jsession.scene) == sorted_fp
     for session in (RenderSession(world, CFG), AdaptiveSession(world, CFG)):
         assert scene_fingerprint(session.scene) == sorted_fp
+
+
+def test_default_entry_points_need_the_card(tmp_path):
+    """With no backend named, a session and the CLI render on the card:
+    without a GPU they raise and name ``torch``, and nothing renders on the
+    CPU; ``backend="torch"`` renders there."""
+    from myraytracer_tpu_torch.render.adaptive import AdaptiveSession
+
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present: tests/test_torch_gpu.py holds the default there")
+    world = presets.reference_scene()
+    small = dict(width=8, height=4, ray_depth=2)
+    for build in (lambda: RenderSession(world),
+                  lambda: RenderSession(world, RenderConfig(**small)),
+                  lambda: dispatch.make_session(world, RenderConfig()),
+                  lambda: AdaptiveSession(world, RenderConfig(**small))):
+        with pytest.raises(RuntimeError, match="--backend torch"):
+            build()
+    out = tmp_path / "x.png"
+    with pytest.raises(RuntimeError, match="--backend torch"):
+        cli.main(["--width", "8", "--height", "4", "--out", str(out)])
+    assert not out.exists()
+    s = RenderSession(world, RenderConfig(backend="torch", **small))
+    assert s.backend_resolved == "torch" and s.device.type == "cpu"
+    assert torch.isfinite(s.step()).all()
+
+
+def test_myrt_backend_env_applies_only_at_auto(tmp_path, monkeypatch):
+    """``MYRT_BACKEND`` as the JAX CLI reads it (cli.py:656-666): it picks
+    the backend when the flag is left at auto, a bogus value exits, and an
+    explicit flag wins."""
+    argv = ["--width", "16", "--height", "8", "--ray-depth", "2", "--checkpoint",
+            str(tmp_path / "c.npz"), "--out", str(tmp_path / "e.png")]
+    monkeypatch.setenv("MYRT_BACKEND", "torch")
+    assert cli.main(argv) == 0
+    assert read_png(tmp_path / "e.png").shape == (8, 16, 3)
+    with np.load(tmp_path / "c.npz") as z:
+        assert '"backend": "torch"' in str(z["meta"])
+    monkeypatch.setenv("MYRT_BACKEND", "bogus")
+    with pytest.raises(SystemExit, match="MYRT_BACKEND"):
+        cli.main(argv)
+    assert cli.main(argv + ["--backend", "torch"]) == 0
+    if not torch.cuda.is_available():
+        monkeypatch.setenv("MYRT_BACKEND", "cuda")
+        with pytest.raises(RuntimeError, match="CUDA GPU"):
+            cli.main(argv)
