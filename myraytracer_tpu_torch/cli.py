@@ -2,27 +2,31 @@
 
 The reference's native runner (``native-runner/src/main.rs:4-43``): the
 same five flags with the same defaults and the same 0-means-derive size
-rule, headless — ``--frames`` bounds the progressive loop and the result is
-written to ``--out``. Extensions: scene, seed, backend, output transfer,
-checkpoint and resume, frame batching (``--frame-batch``), adaptive
-sampling (``--adaptive``), the estimator's modes (``--nee``, ``--rr N``,
-``--qmc``), the output denoiser (``--denoise [N|auto]``) and feature images
-(``--aov``), and a log line per step (frame, accumulated spp, ms, Mrays/s =
-traced ray segments per second, shadow rays included).
+rule, headless — ``--frames`` bounds the progressive loop (0 = until
+Ctrl-C) and the result is written to ``--out``. Extensions: scene, seed,
+backend (``MYRT_BACKEND`` when the flag is left at ``auto``), background
+(``--ambient``), output transfer and exposure, checkpoint and resume, frame
+batching (``--frame-batch``), adaptive sampling (``--adaptive``), the
+estimator's modes (``--nee``, ``--rr N``, ``--qmc``), the output denoiser
+(``--denoise [N|auto]``) and feature images (``--aov``), progressive
+previews (``--preview-every``), the live viewer (``--serve PORT``, with
+camera orbits under ``--interactive``: the analog of the reference's
+browser runner), a profiler trace (``--profile``), a NaN check a step
+(``--debug-nans``), and a log line per sync (frame, accumulated spp, ms a
+frame, Mrays/s = traced ray segments per second, shadow rays included).
 
-Sphere scenes, triangle meshes (``mesh``, ``mesh:N``), large sphere fields
-(``spheres:N``), the emissive scenes (``light``, ``cornell``) and the
-textured ones (``texture``: checker and marble; ``earth``: an image
-texture) render on both backends; the CUDA kernel sweeps them behind the
-JAX kernel's chunk gates and evaluates textures in the kernel. The
-denoiser and the feature pass run on the session's device: on the GPU with
-``--backend cuda``. The JAX package's other flags (serving, interactive
-orbits, OBJ input, sharding, ...) are not in the port yet.
+Every scene renders on both backends: ``cuda`` (the default ``auto``) runs
+the CUDA kernels on the GPU and never falls back to the CPU; ``torch`` runs
+the plain integrator on the CPU. The denoiser and the feature pass run on
+the session's device. The JAX package's OBJ input (``--obj``,
+``--ground``) and sharding (``--shard``, ``--multihost``) are not in the
+port yet.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import logging
 import os
@@ -37,6 +41,10 @@ from myraytracer_tpu_torch.scene.presets import get_scene
 log = logging.getLogger("myraytracer_tpu_torch")
 
 _AOV_NAMES = ("albedo", "normal", "depth")
+
+# Seconds between host syncs under --serve: each pushes a frame to the
+# viewer and polls its camera; steps in between queue on the device.
+SERVE_SYNC_S = 0.25
 
 
 def _denoise_value(s: str):
@@ -67,8 +75,12 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--ray-depth", type=int, default=50)
     p.add_argument("--max-framebuffer-weight", type=float, default=1.0)
     # Extensions.
-    p.add_argument("--frames", type=int, default=1,
-                   help="progressive frames to run")
+    p.add_argument(
+        "--frames", type=int, default=1,
+        help="progressive frames to run; 0 = accumulate until interrupted "
+        "(the reference's unbounded redraw loop, lib.rs:187-196: Ctrl-C "
+        "writes the checkpoint and the final image)",
+    )
     p.add_argument(
         "--scene", default="reference", metavar="NAME",
         help="built-in scene: reference, lambertian, three-sphere, defocus, "
@@ -96,6 +108,12 @@ def build_parser() -> argparse.ArgumentParser:
         "jitter and lens draws (deterministic, like the default stream)",
     )
     p.add_argument(
+        "--ambient", default=None, metavar="R,G,B",
+        help="constant background color replacing the scene's sky (e.g. 0,0,0 "
+        "for emissive-only light; the reference's sky gradient is hard-coded, "
+        "shader.wgsl:331-334)",
+    )
+    p.add_argument(
         "--backend", choices=["auto", "cuda", "torch"], default="auto",
         help="cuda: the CUDA kernels on the GPU (never falls back to the CPU; "
         "without a GPU it raises); torch: the plain PyTorch integrator on the "
@@ -108,15 +126,28 @@ def build_parser() -> argparse.ArgumentParser:
         "'aces'",
     )
     p.add_argument(
+        "--exposure", type=float, default=1.0, metavar="SCALE",
+        help="linear pre-transfer exposure scale for display encodes (1.0 = "
+        "neutral, 2.0 = +1 stop): the written image, previews and the viewer. "
+        ".pfm/.npy sinks, AOVs and checkpoints carry the unscaled radiance",
+    )
+    p.add_argument(
         "--out", default="out.png",
         help=".png/.ppm (u8, --gamma transfer) or .pfm/.npy (raw linear "
         "float) output path",
     )
     p.add_argument(
+        "--sample-batch", type=int, default=0, metavar="S",
+        help="samples the plain torch integrator traces in one vectorized "
+        "pass (0 = auto, from the frame size). The CUDA kernel ignores it: "
+        "each lane traces its samples in turn",
+    )
+    p.add_argument(
         "--frame-batch", type=int, default=0, metavar="K",
         help="progressive frames rendered per kernel launch (bitwise "
         "identical to K separate frames; with --adaptive, sample windows "
-        "per round). 0 = auto: measured on the CUDA kernel, 1 on torch",
+        "per round). 0 = auto: measured on the CUDA kernel, 1 on torch and "
+        "with --serve (keeps the viewer's and the orbit's latency low)",
     )
     p.add_argument(
         "--adaptive", type=int, nargs="?", const=0, default=None,
@@ -125,7 +156,9 @@ def build_parser() -> argparse.ArgumentParser:
         "budget where the image is still noisy, at 64x32 pixel-block "
         "granularity (render/adaptive.py). Optional value = blocks "
         "re-rendered per round (default ~1/4 of the grid). Composes with "
-        "--frame-batch and --checkpoint/--resume",
+        "--frame-batch, --checkpoint/--resume, --serve (a progress view; no "
+        "query rebuilds) and --interactive (an orbit restarts the schedule); "
+        "not with --frames 0",
     )
     p.add_argument(
         "--denoise", type=_denoise_value, nargs="?", const=0, default=None,
@@ -136,35 +169,66 @@ def build_parser() -> argparse.ArgumentParser:
         "doubles per iteration), or 'auto' = a count scheduled from the "
         "framebuffer's own noise (raw once it is clean). A display transform "
         "only: checkpoints keep the raw accumulation and no sample stream "
-        "changes. Composes with both backends and --adaptive",
+        "changes. Composes with both backends, --adaptive and --serve",
     )
     p.add_argument(
         "--aov", type=str, default=None, metavar="LIST",
         help="comma list from {albedo,normal,depth}: write feature images "
         "next to --out as <stem>.<aov><ext>, from the deterministic "
         "primary-hit pass --denoise uses. u8 sinks encode linearly (normal "
-        "(n+1)/2, depth t/(1+t)); .pfm/.npy sinks carry the raw float values",
+        "(n+1)/2, depth t/(1+t)); .pfm/.npy sinks carry the raw float values. "
+        "With --serve, also published at /aov/<name>.png",
     )
     p.add_argument("--checkpoint", default=None, help="save checkpoint here")
     p.add_argument("--resume", default=None, help="resume from checkpoint")
     p.add_argument("--log-level", default=None,
                    help="debug|info|warning|error (default info; MYRT_LOG env)")
+    p.add_argument(
+        "--profile", default=None, metavar="LOGDIR",
+        help="record a torch.profiler trace of the render loop (CPU and CUDA "
+        "activity) into LOGDIR/trace.json (Chrome trace format)",
+    )
+    p.add_argument(
+        "--debug-nans", action="store_true",
+        help="check every step's new framebuffer for NaN and inf and stop at "
+        "the first (FloatingPointError naming the frame; a sync a step)",
+    )
+    p.add_argument(
+        "--preview-every", type=int, default=0, metavar="N",
+        help="rewrite --out every N frames (progressive preview)",
+    )
+    p.add_argument(
+        "--serve", type=int, default=None, metavar="PORT",
+        help="serve the accumulating frame at http://localhost:PORT/ (the "
+        "analog of the reference's browser runner; 0 picks a free port)",
+    )
+    p.add_argument(
+        "--interactive", action="store_true",
+        help="with --serve: drag/wheel in the browser orbits the camera (the "
+        "runtime camera operand: no kernel or table rebuild; general-mode "
+        "scenes)",
+    )
     return p
+
+
+class _DenoiseOnly(Exception):
+    """Control flow: a viewer query that only toggles --denoise (the
+    serving loop swaps the output filter without a session rebuild)."""
 
 
 def _make_denoiser(denoise_arg, config, world, width, height, device):
     """Build the output denoiser on ``device``, or None.
 
     ``denoise_arg``: None = off, 0 = default iterations, N >= 1 = N
-    iterations, "auto" = noise-scheduled iterations. A display transform
-    bound to the world, camera and size; applied at the image sinks, never
-    to checkpoints.
+    iterations, "auto" (or the viewer's -1 sentinel) = noise-scheduled
+    iterations. A display transform bound to the world, camera and size;
+    applied at the image sinks, never to checkpoints.
     """
     if denoise_arg is None:
         return None
     from myraytracer_tpu_torch.render.denoise import Denoiser
 
-    auto = denoise_arg == "auto"
+    auto = denoise_arg == "auto" or denoise_arg == -1
     fixed = 0 if auto else denoise_arg
     return Denoiser(
         world, width, height, t_min=config.t_min, t_max=config.t_max,
@@ -179,6 +243,19 @@ def _parse_aov_names(aov_arg):
     if bad:
         raise SystemExit(f"--aov: unknown channel(s) {bad}; choose from {_AOV_NAMES}")
     return names
+
+
+def _parse_ambient(value):
+    """--ambient R,G,B → three nonnegative floats (SystemExit on junk)."""
+    try:
+        amb = tuple(float(c) for c in value.split(","))
+        if len(amb) != 3 or any(c < 0 for c in amb):
+            raise ValueError
+    except ValueError:
+        raise SystemExit(
+            f"--ambient: expected R,G,B nonnegative floats, got {value!r}"
+        ) from None
+    return amb
 
 
 def _aov_feature_pass(config, world, width, height, device, denoiser=None):
@@ -196,7 +273,7 @@ def _aov_feature_pass(config, world, width, height, device, denoiser=None):
 
 
 def _aov_images(dn, cam, names, hdr=False):
-    """name → image dict from the feature pass. ``hdr`` keeps raw float
+    """name → host image dict from the feature pass. ``hdr`` keeps raw float
     values (signed normals, world-unit depth); else display encodes
     (normal (n+1)/2, depth t/(1+t) so sky→~1; albedo is already [0,1])."""
     import numpy as np
@@ -231,57 +308,142 @@ def _write_aovs(aov_arg, out_path, config, world, width, height, device,
         log.info("aov %s → %s", name, p)
 
 
+def _make_viewer(args, world):
+    """The live viewer of --serve, or None; --interactive needs one and a
+    camera that moves."""
+    if args.interactive and (args.serve is None or world.camera.reference_mode):
+        raise SystemExit(
+            "--interactive needs --serve and a general-mode (positionable) "
+            "camera scene"
+        )
+    if args.serve is None:
+        return None
+    from myraytracer_tpu_torch.viewer import LiveViewer
+
+    return LiveViewer(args.serve, gamma=args.gamma, exposure=args.exposure)
+
+
+def _denoise_stats(denoise, spp):
+    """The viewer's denoise fields for ``LiveViewer.update``."""
+    return dict(
+        denoise=denoise.effective_iterations(spp) if denoise else 0,
+        denoise_auto=bool(denoise and denoise.auto),
+        denoise_noise=denoise.last_noise if denoise and denoise.auto else None,
+    )
+
+
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
     level_name = args.log_level or os.environ.get("MYRT_LOG") or "info"
     level = getattr(logging, level_name.upper(), None)
     if not isinstance(level, int):
-        raise SystemExit(f"unknown log level {level_name!r}")
+        raise SystemExit(
+            f"unknown log level {level_name!r} (flag --log-level or MYRT_LOG "
+            f"env): use debug|info|warning|error"
+        )
     logging.basicConfig(
         level=level, format="%(asctime)s %(name)s %(levelname)s %(message)s",
     )
-    if args.frames < 1:
-        raise SystemExit(f"--frames must be >= 1, got {args.frames}")
+    if args.frames < 0:
+        raise SystemExit(f"--frames must be >= 0, got {args.frames}")
     backend = args.backend
     if backend == "auto" and os.environ.get("MYRT_BACKEND"):
         backend = os.environ["MYRT_BACKEND"]
         if backend not in ("auto", "cuda", "torch"):
             raise SystemExit(f"MYRT_BACKEND={backend!r}: not auto|cuda|torch")
-    config = RenderConfig(
-        width=args.width,
-        height=args.height,
-        samples_per_frame=args.samples_per_frame,
-        ray_depth=args.ray_depth,
-        max_framebuffer_weight=args.max_framebuffer_weight,
-        seed=args.seed,
-        gamma=args.gamma,
-        backend=backend,
-        frame_batch=args.frame_batch,
-        max_frames=args.frames,
-        nee=args.nee,
-        qmc=args.qmc,
-        rr=max(0, args.rr),
-    )
-    from myraytracer_tpu_torch.render.dispatch import make_session
+    # A live viewer wants a frame's latency, not a batch's throughput: auto
+    # frame batching drops to 1 under --serve unless set.
+    frame_batch = args.frame_batch
+    if frame_batch == 0 and args.serve is not None:
+        frame_batch = 1
 
-    try:
-        world = get_scene(args.scene, seed=config.seed)
-    except KeyError as e:
-        raise SystemExit(f"--scene: {e.args[0]}") from None
+    def make_config(**over) -> RenderConfig:
+        base = dict(
+            width=args.width,
+            height=args.height,
+            samples_per_frame=args.samples_per_frame,
+            ray_depth=args.ray_depth,
+            max_framebuffer_weight=args.max_framebuffer_weight,
+            seed=args.seed,
+            gamma=args.gamma,
+            sample_batch=args.sample_batch,
+            backend=backend,
+            frame_batch=frame_batch,
+            max_frames=args.frames,
+            nee=args.nee,
+            qmc=args.qmc,
+            rr=max(0, args.rr),
+        )
+        base.update(over)
+        return RenderConfig(**base)
+
+    def build_world(scene_name: str, config: RenderConfig):
+        try:
+            world = get_scene(scene_name, seed=config.seed)
+        except KeyError as e:
+            raise SystemExit(f"--scene: {e.args[0]}") from None
+        if args.ambient is not None:
+            from myraytracer_tpu_torch.scene.api import World
+
+            world = World(world.spheres, camera=world.camera, meshes=world.meshes,
+                          ambient=_parse_ambient(args.ambient))
+        return world
+
     if args.aov:
         _parse_aov_names(args.aov)  # a bad list fails before the render, not after
-    if args.adaptive is not None:
-        return _run_adaptive(args, config, world)
-    session = make_session(world, config)
-    denoise = _make_denoiser(args.denoise, config, world, session.width, session.height,
+    if args.adaptive is not None and args.frames == 0:
+        raise SystemExit("--adaptive does not compose with --frames 0 (needs a "
+                         "bounded budget)")
+    from myraytracer_tpu_torch.utils import profiling
+
+    # The switch is the process's (as jax_debug_nans is); a run restores it.
+    nans_before = profiling.debug_nans()
+    profiling.enable_debug_nans(args.debug_nans or nans_before)
+    trace_cm = (profiling.profile_trace(args.profile) if args.profile
+                else contextlib.nullcontext())
+    try:
+        config = make_config()
+        if args.adaptive is not None:
+            return _run_adaptive(args, config, build_world(args.scene, config), trace_cm)
+        return _run_uniform(args, config, make_config, build_world, trace_cm)
+    finally:
+        profiling.enable_debug_nans(nans_before)
+
+
+def _run_uniform(args, config, make_config, build_world, trace_cm) -> int:
+    """The progressive loop: one step = ``frame_batch`` frames. Headless, a
+    step syncs and logs; under --serve the host syncs every
+    ``SERVE_SYNC_S``, pushes the frame to the viewer, applies orbits and
+    session requests, and steps in between queue on the device."""
+    from myraytracer_tpu_torch.render.dispatch import make_session
+
+    def build_session(scene_name: str, config: RenderConfig):
+        world = build_world(scene_name, config)
+        session = make_session(world, config)
+        log.info(
+            "rendering scene=%s %dx%d spp/frame=%d depth=%d frames=%s "
+            "frame_batch=%d backend=%s nee=%s rr=%d qmc=%s",
+            scene_name, session.width, session.height, config.samples_per_frame,
+            config.ray_depth, args.frames if args.frames else "unbounded",
+            session.frame_batch, session.backend_resolved, config.nee, config.rr,
+            config.qmc,
+        )
+        return world, session
+
+    scene_name = args.scene
+    world, session = build_session(scene_name, config)
+    denoise_arg = args.denoise
+    denoise = _make_denoiser(denoise_arg, config, world, session.width, session.height,
                              session.device)
-    log.info(
-        "rendering scene=%s %dx%d spp/frame=%d depth=%d frames=%d "
-        "frame_batch=%d backend=%s nee=%s rr=%d qmc=%s",
-        args.scene, session.width, session.height, config.samples_per_frame,
-        config.ray_depth, args.frames, session.frame_batch,
-        session.backend_resolved, config.nee, config.rr, config.qmc,
-    )
+
+    def post(fb):
+        """--denoise at every image sink (never on checkpoints), as a host
+        array. Reads the current session and denoiser, which a viewer
+        request rebinds."""
+        if denoise is not None:
+            fb = denoise(fb, session.scene.cam, spp=session.accumulated_spp)
+        return fb.cpu().numpy()
+
     if args.resume:
         session.load_checkpoint(args.resume)
         log.info(
@@ -289,47 +451,193 @@ def main(argv=None) -> int:
             args.resume, session.frame_count, session.accumulated_spp,
         )
 
-    # One step = frame_batch frames; the auto batch never overshoots
-    # --frames (config.max_frames), an explicit one may round it up.
-    for _ in range(-(-args.frames // session.frame_batch)):
-        segs0 = session.segments_traced
-        t0 = time.perf_counter()
-        session.step()
-        segs = session.segments_traced - segs0  # waits for the step
-        dt = time.perf_counter() - t0
-        log.info(
-            "frame=%d spp=%d ms=%.1f Mrays/s=%.1f",
-            session.frame_count, session.accumulated_spp,
-            dt * 1e3 / session.frame_batch, segs / dt / 1e6,
-        )
+    viewer = _make_viewer(args, world)
+    # Orbits turn about the view the run started from: the resumed one.
+    orbit_base = session.camera
+
+    aov_names = _parse_aov_names(args.aov) if args.aov else []
+    aov_pass = {}  # the viewer's cached feature pass
+
+    def push_aovs():
+        """Publish /aov/<name>.png (--aov with --serve). Features are static
+        per camera, so this runs when the camera or the session changes
+        (start, rebuild, orbit), never a frame; the feature pass is cached."""
+        if viewer is None or not aov_names:
+            return
+        dn = denoise
+        if dn is None or (dn.width, dn.height) != (session.width, session.height):
+            dn = aov_pass.get("dn")
+            if (dn is None
+                    or (dn.width, dn.height) != (session.width, session.height)
+                    or aov_pass.get("world") is not world):
+                dn = _aov_feature_pass(config, world, session.width, session.height,
+                                       session.device)
+                aov_pass["dn"], aov_pass["world"] = dn, world
+        viewer.set_aovs(_aov_images(dn, session.scene.cam, aov_names))
+        log.info("aov endpoints live: /aov/{%s}.png", ",".join(aov_names))
+
+    push_aovs()
+
+    # Under the viewer a step is not synced by itself: the host syncs (and
+    # pushes to the browser and polls the camera) on a wall-clock cadence,
+    # and reads the segment count only there. Headless, every step syncs
+    # for its log line.
+    sync_interval = SERVE_SYNC_S if viewer is not None else 0.0
+    # A while loop: a session rebuild can change frame_batch, and with it
+    # the step count.
+    n_steps = -(-args.frames // session.frame_batch)
+    previews_written = 0
+    with trace_cm:
+        t_sync = time.perf_counter()
+        segs_sync = session.segments_traced
+        frames_sync = 0
+        try:
+            i = 0
+            while args.frames == 0 or i < n_steps:
+                last = args.frames != 0 and i == n_steps - 1
+                i += 1
+                if viewer is not None and not last:
+                    sreq = viewer.pending_session()
+                    if sreq is not None:
+                        # URL-query render parameters (the reference web
+                        # runner's Args-from-query, lib.rs:72-94): rebuild
+                        # the session with the merged config. A bad request
+                        # is rejected and the running session kept.
+                        try:
+                            from myraytracer_tpu_torch.viewer import validate_config_bounds
+
+                            req_scene = sreq.pop("scene", scene_name)
+                            # ?denoise=N: 0 = off, N >= 1 = iterations. A
+                            # denoise-only query swaps the output filter in
+                            # place and keeps the accumulation.
+                            req_dn = sreq.pop("denoise", None)
+                            if not sreq and req_scene == scene_name and req_dn is not None:
+                                denoise_arg = req_dn if req_dn else None
+                                denoise = _make_denoiser(
+                                    denoise_arg, config, world, session.width,
+                                    session.height, session.device)
+                                log.info(
+                                    "denoise %s (live toggle, accumulation kept)",
+                                    ("on (auto)" if denoise.auto else
+                                     f"on ({denoise.iterations} iters)") if denoise else "off",
+                                )
+                                raise _DenoiseOnly
+                            req_config = make_config(**sreq)
+                            # The merged config, not just the query: ?width=4096
+                            # must not combine with a large height.
+                            validate_config_bounds(req_config)
+                            # The running session stays until the new one is
+                            # built; replaced, nothing holds its tables on
+                            # the card any more.
+                            new_world, new_session = build_session(req_scene, req_config)
+                        except _DenoiseOnly:
+                            pass
+                        except (SystemExit, ValueError, KeyError, TypeError) as e:
+                            log.warning("viewer session request rejected: %s", e)
+                        else:
+                            world, session = new_world, new_session
+                            scene_name, config = req_scene, req_config
+                            orbit_base = session.camera
+                            if req_dn is not None:
+                                denoise_arg = req_dn if req_dn else None
+                            denoise = _make_denoiser(denoise_arg, config, world,
+                                                     session.width, session.height,
+                                                     session.device)
+                            # The rebuilt session restarts the accumulation
+                            # (a page reload), and the frame budget with it.
+                            n_steps = -(-args.frames // session.frame_batch)
+                            i = 1  # the in-flight step is the first
+                            push_aovs()
+                        t_sync = time.perf_counter()
+                        segs_sync = session.segments_traced
+                        frames_sync = 0
+                session.step()
+                frames_sync += session.frame_batch
+                if viewer is not None and not last \
+                        and time.perf_counter() - t_sync < sync_interval:
+                    continue
+                segs = session.segments_traced  # waits for the queued steps
+                dt = time.perf_counter() - t_sync
+                log.info(
+                    "frame=%d spp=%d ms=%.1f Mrays/s=%.1f",
+                    session.frame_count, session.accumulated_spp,
+                    dt * 1e3 / max(1, frames_sync), (segs - segs_sync) / dt / 1e6,
+                )
+                t_sync, segs_sync, frames_sync = time.perf_counter(), segs, 0
+                if viewer is not None:
+                    # The encode runs on the viewer's thread while this one
+                    # queues the next steps; the last frame is published
+                    # before the run ends.
+                    viewer.update(post(session.framebuffer), session.frame_count,
+                                  session.accumulated_spp, background=not last,
+                                  **_denoise_stats(denoise, session.accumulated_spp))
+                    # Not on the last step: a move would zero the
+                    # accumulation with nothing left to refill it.
+                    if args.interactive and not last:
+                        req = viewer.pending_camera()
+                        if req is not None:
+                            from myraytracer_tpu_torch.render.camera import orbit_camera
+
+                            session.set_camera(orbit_camera(
+                                orbit_base, req.get("yaw", 0.0), req.get("pitch", 0.0),
+                                req.get("dist", 1.0),
+                            ))
+                            log.info(
+                                "camera orbit yaw=%.2f pitch=%.2f dist=%.2f "
+                                "(accumulation reset, no rebuild)",
+                                req.get("yaw", 0.0), req.get("pitch", 0.0),
+                                req.get("dist", 1.0),
+                            )
+                            push_aovs()  # the features follow the orbit
+                if args.preview_every and session.frame_count > 0 \
+                        and session.frame_count // args.preview_every > previews_written:
+                    # Threshold crossing, not divisibility: frame_count moves
+                    # in frame_batch jumps that rarely land on multiples.
+                    previews_written = session.frame_count // args.preview_every
+                    write_image(args.out, post(session.framebuffer), gamma=args.gamma,
+                                exposure=args.exposure)
+                    log.info("preview → %s", args.out)
+        except KeyboardInterrupt:
+            # The run-forever mode's exit (and any long run's): the
+            # checkpoint and the final image below, with what accumulated.
+            # A step commits whole, so the state is a step's end.
+            log.info(
+                "interrupted at frame %d (%d spp) — writing final image",
+                session.frame_count, session.accumulated_spp,
+            )
 
     if args.checkpoint:
         session.save_checkpoint(args.checkpoint)
         log.info("checkpoint saved to %s", args.checkpoint)
-    final = session.framebuffer
+    final = post(session.framebuffer)
     if denoise is not None:
-        final = denoise(final, session.scene.cam, spp=session.accumulated_spp)
         log.info("denoised: %d iterations%s", denoise.effective_iterations(
             session.accumulated_spp), " (auto)" if denoise.auto else "")
-    write_image(args.out, final.cpu().numpy(), gamma=args.gamma)
+    write_image(args.out, final, gamma=args.gamma, exposure=args.exposure)
     log.info("wrote %s", args.out)
     if args.aov:
+        # The features follow the final camera (an orbit moves scene.cam).
         _write_aovs(args.aov, args.out, config, world, session.width, session.height,
                     session.device, cam=session.scene.cam, denoiser=denoise)
     return 0
 
 
-def _run_adaptive(args, config: RenderConfig, world) -> int:
-    """Adaptive-sampling render loop (render/adaptive.py), headless.
+def _run_adaptive(args, config: RenderConfig, world, trace_cm) -> int:
+    """Adaptive-sampling render loop (render/adaptive.py).
 
     ``--frames N`` is the budget of N uniform frames' worth of samples; the
     session reallocates it toward high-variance pixel blocks after a
-    two-cover bootstrap. A resumed run spends N frames more.
+    two-cover bootstrap. A resumed run spends N frames more. Under --serve
+    the viewer shows the progress (URL-query rebuilds are refused: the
+    state is bound to one scene and size, but ``?denoise=`` toggles the
+    filter), and under --interactive an orbit restarts the bootstrap and
+    the budget.
     """
     import numpy as np
 
     from myraytracer_tpu_torch.render.adaptive import AdaptiveSession
 
+    viewer = _make_viewer(args, world)
     if args.resume and config.frame_batch == 0:
         # The saved session's window count is provenance: inherit it rather
         # than re-deriving it from this run's (possibly other) budget.
@@ -341,12 +649,31 @@ def _run_adaptive(args, config: RenderConfig, world) -> int:
     session = AdaptiveSession(world, config, n_sel=max(0, args.adaptive))
     denoise = _make_denoiser(args.denoise, config, world, session.width, session.height,
                              session.device)
+
+    def avg_spp():
+        # Adaptive spp is per pixel; the budget's average is the scale a
+        # global filter's schedule wants.
+        return session.samples_spent // (session.width * session.height)
+
+    def post(fb):
+        """--denoise as a host array; the runtime camera rides along, so the
+        guide features follow an orbit."""
+        if denoise is not None:
+            fb = denoise(fb, session.scene.cam, spp=avg_spp())
+        return fb.cpu().numpy()
+
     if args.resume:
         session.load_checkpoint(args.resume)
         log.info(
             "resumed adaptive state from %s (%d rounds, %d samples spent)",
             args.resume, session.rounds, session.samples_spent,
         )
+    orbit_base = session.camera
+    aov_dn = None
+    if viewer is not None and args.aov:
+        aov_dn = _aov_feature_pass(config, world, session.width, session.height,
+                                   session.device, denoise)
+        viewer.set_aovs(_aov_images(aov_dn, session.scene.cam, _parse_aov_names(args.aov)))
     budget = args.frames * config.samples_per_frame * session.width * session.height
     budget += session.samples_spent  # a resumed run's budget is extra
     round_cost = session.round_cost()
@@ -358,26 +685,80 @@ def _run_adaptive(args, config: RenderConfig, world) -> int:
         session.block_h, session.n_sel, session.windows,
         "" if config.frame_batch > 0 else " auto", session.backend_resolved,
     )
-    t_start = t_sync = time.perf_counter()
-    segs_start = segs_sync = session.segments_traced
-    # The bootstrap (two covers: variance needs two rounds per block) runs
-    # on a fresh session even past a tiny budget, so every pixel is
-    # rendered; a resumed checkpoint that completed it does not re-pay it.
-    if not session.bootstrapped:
-        session.bootstrap()
-    # Rounds queue on the device; the host syncs about once a second.
-    while session.samples_spent + round_cost <= budget:
-        session.step()
-        if time.perf_counter() - t_sync >= 1.0:
-            segs = session.segments_traced  # waits for the queued rounds
-            dt = time.perf_counter() - t_sync
+    # Rounds queue on the device; the host syncs about once a second, or on
+    # the viewer's cadence.
+    sync_interval = SERVE_SYNC_S if viewer is not None else 1.0
+    with trace_cm:
+        t_start = t_sync = time.perf_counter()
+        segs_start = segs_sync = session.segments_traced
+        try:
+            # The bootstrap (two covers: variance needs two rounds per block)
+            # runs on a fresh session even past a tiny budget, so every pixel
+            # is rendered; a resumed checkpoint that completed it does not
+            # pay it again.
+            if not session.bootstrapped:
+                session.bootstrap()
+            while session.samples_spent + round_cost <= budget:
+                session.step()
+                if time.perf_counter() - t_sync < sync_interval:
+                    continue
+                segs = session.segments_traced  # waits for the queued rounds
+                dt = time.perf_counter() - t_sync
+                log.info(
+                    "rounds=%d spent=%.1f%% of budget Mrays/s=%.1f",
+                    session.rounds, 100.0 * session.samples_spent / budget,
+                    (segs - segs_sync) / dt / 1e6,
+                )
+                t_sync, segs_sync = time.perf_counter(), segs
+                if viewer is None:
+                    continue
+                viewer.update(post(session.framebuffer), session.rounds, avg_spp(),
+                              background=True, **_denoise_stats(denoise, avg_spp()))
+                if args.interactive:
+                    req = viewer.pending_camera()
+                    if req is not None:
+                        from myraytracer_tpu_torch.render.camera import orbit_camera
+
+                        session.set_camera(orbit_camera(
+                            orbit_base, req.get("yaw", 0.0), req.get("pitch", 0.0),
+                            req.get("dist", 1.0),
+                        ))
+                        log.info(
+                            "camera orbit yaw=%.2f pitch=%.2f dist=%.2f "
+                            "(adaptive schedule restarted, no rebuild)",
+                            req.get("yaw", 0.0), req.get("pitch", 0.0), req.get("dist", 1.0),
+                        )
+                        if args.aov:
+                            aov_dn = _aov_feature_pass(
+                                config, world, session.width, session.height,
+                                session.device, denoise or aov_dn)
+                            viewer.set_aovs(_aov_images(aov_dn, session.scene.cam,
+                                                        _parse_aov_names(args.aov)))
+                sreq = viewer.pending_session()
+                if sreq is not None:
+                    req_dn = sreq.pop("denoise", None)
+                    if sreq or req_dn is None:
+                        log.warning(
+                            "viewer session request ignored: the adaptive state is "
+                            "bound to one scene and size (restart with new flags)"
+                        )
+                    else:
+                        # A display transform: the schedule and the
+                        # accumulation are untouched.
+                        denoise = _make_denoiser(req_dn if req_dn else None, config, world,
+                                                 session.width, session.height,
+                                                 session.device)
+                        log.info(
+                            "denoise %s (live toggle, schedule kept)",
+                            ("on (auto)" if denoise.auto else
+                             f"on ({denoise.iterations} iters)") if denoise else "off",
+                        )
+        except KeyboardInterrupt:
             log.info(
-                "rounds=%d spent=%.1f%% of budget Mrays/s=%.1f",
-                session.rounds, 100.0 * session.samples_spent / budget,
-                (segs - segs_sync) / dt / 1e6,
+                "interrupted at round %d (%d samples) — writing final image",
+                session.rounds, session.samples_spent,
             )
-            t_sync, segs_sync = time.perf_counter(), segs
-    final = session.framebuffer
+    final = post(session.framebuffer)
     segs = session.segments_traced - segs_start
     dt = time.perf_counter() - t_start
     smap = session.spp_map
@@ -388,19 +769,18 @@ def _run_adaptive(args, config: RenderConfig, world) -> int:
         100.0 * session.samples_spent / budget,
         smap.min(), float(smap.mean()), smap.max(), dt, segs / dt / 1e6,
     )
+    if viewer is not None:
+        viewer.update(final, session.rounds, avg_spp(), **_denoise_stats(denoise, avg_spp()))
     if args.checkpoint:
         session.save_checkpoint(args.checkpoint)
         log.info("adaptive checkpoint saved to %s", args.checkpoint)
     if denoise is not None:
-        # Adaptive spp is per pixel; the budget's average is the scale a
-        # global filter's schedule wants.
-        spp = session.samples_spent // (session.width * session.height)
-        final = denoise(final, session.scene.cam, spp=spp)
-        log.info("denoised: %d iterations%s", denoise.effective_iterations(spp),
+        log.info("denoised: %d iterations%s", denoise.effective_iterations(avg_spp()),
                  " (auto)" if denoise.auto else "")
-    write_image(args.out, final.cpu().numpy(), gamma=args.gamma)
+    write_image(args.out, final, gamma=args.gamma, exposure=args.exposure)
     log.info("wrote %s", args.out)
     if args.aov:
+        # The features follow the final camera (an orbit may have moved it).
         _write_aovs(args.aov, args.out, config, world, session.width, session.height,
                     session.device, cam=session.scene.cam, denoiser=denoise)
     return 0

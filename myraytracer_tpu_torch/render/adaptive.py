@@ -38,10 +38,12 @@ from myraytracer_tpu_torch.render.camera import pack_camera
 from myraytracer_tpu_torch.render.dispatch import resolve_backend
 from myraytracer_tpu_torch.render.lights import extract_lights
 from myraytracer_tpu_torch.render.session import (
-    CHECKPOINT_VERSION, fma_f32, scene_fingerprint, wants_spatial_sort,
+    CHECKPOINT_VERSION, camera_from_view, camera_view, fma_f32, scene_fingerprint,
+    wants_spatial_sort,
 )
 from myraytracer_tpu_torch.scene import api
 from myraytracer_tpu_torch.scene.compile import CompiledScene, compile_scene
+from myraytracer_tpu_torch.utils import profiling
 
 # The JAX kernel's 16x128 lane tile as a pixel block: BLOCK_W = 64 and
 # block_h = DEFAULT_TILE_ROWS * LANES // BLOCK_W = 16 * 128 // 64. Part of
@@ -262,6 +264,7 @@ class AdaptiveSession:
             )
         self.world = world
         self.config = config
+        self.camera = world.camera  # the view rendered, as RenderSession.camera
         self.width, self.height = config.resolve_size()
         self.backend_resolved = resolve_backend(config)
         self.device = torch.device(
@@ -337,6 +340,8 @@ class AdaptiveSession:
         state = self._state
         for sums_w in sums:
             state = _update_stats(*state, lidx, sums_w, self.config.samples_per_frame)
+        if profiling.debug_nans():
+            profiling.check_finite(state[0], f"adaptive round {self.rounds + self.windows}")
         self._state = state
         self._segs_pending.append(segs)
 
@@ -364,6 +369,7 @@ class AdaptiveSession:
         self.scene = self.scene._replace(cam=torch.from_numpy(
             pack_camera(cam, self.width, self.height)
         ).to(self.device))
+        self.camera = cam
         fbB, s1, s2, n_b, r_b, cursor = self._state
         self._state = (
             torch.zeros_like(fbB), torch.zeros_like(s1), torch.zeros_like(s2),
@@ -469,7 +475,8 @@ class AdaptiveSession:
             sub_rounds=np.int64(self.sub_rounds),
             samples_spent=np.int64(self.samples_spent),
             segments_traced=np.float64(self.segments_traced),
-            meta=json.dumps(self._meta()),
+            meta=json.dumps({**self._meta(), **(
+                {"view": camera_view(self.camera)} if self.scene.cam is not None else {})}),
         )
         if self.scene.cam is not None:
             # The runtime camera: the accumulated state describes its view.
@@ -504,6 +511,8 @@ class AdaptiveSession:
                 self.scene = self.scene._replace(
                     cam=torch.from_numpy(data["camera"]).to(self.device)
                 )
+                self.camera = (camera_from_view(meta["view"]) if "view" in meta
+                               else self.world.camera)
             # Resume skips the bootstrap iff the saved run completed it.
             self._bootstrapped = bool((data["state4"][: self.n_blocks] >= 2).all())
 

@@ -18,6 +18,7 @@ bit.
 
 from __future__ import annotations
 
+import dataclasses
 import math
 from typing import Tuple
 
@@ -147,6 +148,36 @@ def make_ray_generator(cam: Camera, width: int, height: int):
     params = GeneralCameraParams(cam, width, height)
     return lambda ix, iy, u1, u2, l1, l2: general_rays(
         params, width, height, ix, iy, u1, u2, l1, l2
+    )
+
+
+def orbit_camera(base: Camera, yaw: float, pitch: float, dist_scale: float) -> Camera:
+    """Orbit ``base`` about its look-at point (the viewer's camera controls).
+
+    ``yaw`` and ``pitch`` are radians added to the base azimuth and
+    elevation; ``dist_scale`` multiplies the base distance (floored at
+    1e-3). The elevation is clamped to ±1.45 rad, short of the poles, so the
+    vup basis stays defined. An explicit ``focus_dist`` moves by the change
+    in distance, so the depth it focuses stays in focus; ``None`` resolves
+    to the new distance. Python float math, as the JAX package's.
+    """
+    lf, la = base.lookfrom, base.lookat
+    dx, dy, dz = lf[0] - la[0], lf[1] - la[1], lf[2] - la[2]
+    r = math.sqrt(dx * dx + dy * dy + dz * dz) or 1.0
+    az = math.atan2(dz, dx) + yaw
+    el = max(-1.45, min(1.45, math.asin(dy / r) + pitch))
+    r2 = r * max(1e-3, dist_scale)
+    focus = base.focus_dist
+    if focus is not None:
+        focus = max(1e-3, focus + (r2 - r))
+    return dataclasses.replace(
+        base,
+        lookfrom=(
+            la[0] + r2 * math.cos(el) * math.cos(az),
+            la[1] + r2 * math.sin(el),
+            la[2] + r2 * math.cos(el) * math.sin(az),
+        ),
+        focus_dist=focus,
     )
 
 

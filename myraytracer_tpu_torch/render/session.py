@@ -20,9 +20,11 @@ the checkpoint, and a resume on the other one is refused.
 
 from __future__ import annotations
 
+import dataclasses
 import hashlib
 import json
 import pathlib
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -33,6 +35,7 @@ from myraytracer_tpu_torch.render.camera import pack_camera
 from myraytracer_tpu_torch.render.lights import extract_lights
 from myraytracer_tpu_torch.scene import api
 from myraytracer_tpu_torch.scene.compile import SCENE_LEAVES, compile_scene, leaf
+from myraytracer_tpu_torch.utils import profiling
 
 CHECKPOINT_VERSION = 3
 
@@ -102,6 +105,23 @@ def scene_fingerprint(scene) -> str:
     return h.hexdigest()[:16]
 
 
+def camera_view(cam: api.Camera) -> dict:
+    """A camera's fields as checkpoint metadata (JSON)."""
+    return dataclasses.asdict(cam)
+
+
+def camera_from_view(view: dict) -> api.Camera:
+    return api.Camera(**{k: tuple(v) if isinstance(v, list) else v for k, v in view.items()})
+
+
+class Accumulation(NamedTuple):
+    """A session's accumulation state, replaced whole by one store."""
+
+    framebuffer: torch.Tensor
+    frame_count: int  # lib.rs:232 sample_count
+    sample_cursor: int  # global sample index (per pixel)
+
+
 def resolve_device_backend(backend: str) -> str:
     """``auto`` → ``cuda``: the port renders on the card unless the caller
     names ``torch`` (the plain integrator on the CPU)."""
@@ -131,6 +151,9 @@ class RenderSession:
     ):
         self.world = world
         self.config = config
+        # The view being rendered: set_camera's last camera, or the one a
+        # checkpoint recorded (the base of the viewer's orbits).
+        self.camera = world.camera
         self.width, self.height = config.resolve_size()
         if renderer_factory is None:
             from myraytracer_tpu_torch.render import dispatch
@@ -170,16 +193,42 @@ class RenderSession:
             qmc=config.qmc,
             rr=config.rr,
         )
-        self.framebuffer = torch.zeros(
+        # One attribute, so that a step commits with one store: an interrupt
+        # (Ctrl-C under --frames 0) between separate stores could leave a
+        # framebuffer with a frame that the counters do not count, and a
+        # resume would then repeat a window of samples.
+        self._acc = Accumulation(torch.zeros(
             (self.height, self.width, 3), dtype=torch.float32, device=self.device
-        )
-        self.frame_count = 0  # lib.rs:232 sample_count
-        self.sample_cursor = 0  # global sample index (per pixel)
+        ), 0, 0)
         # Per-step segment totals stay on the device until read, so a step
         # does not wait for the device; they fold into a float64 host total.
         self._segs_total = 0.0
         self._segs_pending = []
         self._fingerprint = None
+
+    @property
+    def framebuffer(self) -> torch.Tensor:
+        return self._acc.framebuffer
+
+    @framebuffer.setter
+    def framebuffer(self, fb: torch.Tensor) -> None:
+        self._acc = self._acc._replace(framebuffer=fb)
+
+    @property
+    def frame_count(self) -> int:
+        return self._acc.frame_count
+
+    @frame_count.setter
+    def frame_count(self, n: int) -> None:
+        self._acc = self._acc._replace(frame_count=n)
+
+    @property
+    def sample_cursor(self) -> int:
+        return self._acc.sample_cursor
+
+    @sample_cursor.setter
+    def sample_cursor(self, n: int) -> None:
+        self._acc = self._acc._replace(sample_cursor=n)
 
     @property
     def segments_traced(self) -> float:
@@ -195,9 +244,11 @@ class RenderSession:
 
     def step(self) -> torch.Tensor:
         """Render one step of ``frame_batch`` frames and blend it in; returns
-        the new framebuffer."""
+        the new framebuffer. The state changes only once the render and the
+        blend have returned, in one store."""
+        acc = self._acc
         next_cursor = (
-            self.sample_cursor
+            acc.sample_cursor
             + self.config.samples_per_frame * self.frame_batch
         )
         # QMC reserves the top two draw words for its per-pixel scrambles.
@@ -211,27 +262,31 @@ class RenderSession:
                 f"draw-index space ({crng.M32 // crng.DRAWS_PER_SAMPLE} "
                 f"samples/pixel max): the RNG stream would alias"
             )
-        img, segs = self._render(self.scene, self.key, self.sample_cursor)
+        img, segs = self._render(self.scene, self.key, acc.sample_cursor)
         # Weights from the count of previously completed frames (0 for the
         # first frame, lib.rs:424), in f32 as the JAX session passes them.
         cap = self.config.max_framebuffer_weight
         ws = torch.tensor(
             [
                 min(cap, n / (n + 1)) if n else 0.0
-                for n in range(
-                    self.frame_count, self.frame_count + self.frame_batch
-                )
+                for n in range(acc.frame_count, acc.frame_count + self.frame_batch)
             ],
             dtype=torch.float32,
-            device=self.device,
         )
+        if self.device.type == "cuda":
+            # From pinned memory, without waiting: a pageable copy would
+            # sync the stream, so the host could not queue the next step
+            # while the card renders this one.
+            ws = ws.pin_memory().to(self.device, non_blocking=True)
         if self.frame_batch == 1:
             img = img.permute(2, 0, 1)[None]
-        self.framebuffer = _blend_chain(self.framebuffer, img, ws)
-        self.frame_count += self.frame_batch
-        self.sample_cursor += self.config.samples_per_frame * self.frame_batch
+        fb = _blend_chain(acc.framebuffer, img, ws)
+        frames = acc.frame_count + self.frame_batch
+        if profiling.debug_nans():
+            profiling.check_finite(fb, f"frame {frames} (sample cursor {acc.sample_cursor})")
+        self._acc = Accumulation(fb, frames, next_cursor)
         self._segs_pending.append(segs)
-        return self.framebuffer
+        return fb
 
     def run(self, frames: int) -> torch.Tensor:
         """Run at least ``frames`` progressive frames; ``frames <= 0`` is a
@@ -253,8 +308,9 @@ class RenderSession:
         self.scene = self.scene._replace(cam=torch.from_numpy(
             pack_camera(cam, self.width, self.height)
         ).to(self.device))
-        self.framebuffer = torch.zeros_like(self.framebuffer)
-        self.frame_count = 0
+        self.camera = cam
+        self._acc = self._acc._replace(
+            framebuffer=torch.zeros_like(self._acc.framebuffer), frame_count=0)
 
     # -- checkpoint / resume --------------------------------------------------
 
@@ -294,6 +350,8 @@ class RenderSession:
             "backend": self.backend_resolved,
             "shard": self.config.shard,
         }
+        if self.scene.cam is not None:
+            meta["view"] = camera_view(self.camera)
         arrays = dict(
             framebuffer=self.framebuffer.cpu().numpy(),
             frame_count=np.int64(self.frame_count),
@@ -367,14 +425,14 @@ class RenderSession:
             self.scene = self.scene._replace(
                 cam=torch.from_numpy(data["camera"]).to(self.device)
             )
+            self.camera = camera_from_view(meta["view"]) if "view" in meta else self.world.camera
         elif self.scene.cam is not None:
             raise ValueError(
                 "checkpoint has no runtime camera (fixed reference view) "
                 "but this session renders a positionable camera"
             )
-        self.framebuffer = torch.from_numpy(data["framebuffer"]).to(self.device)
-        self.frame_count = int(data["frame_count"])
-        self.sample_cursor = int(data["sample_cursor"])
+        self._acc = Accumulation(torch.from_numpy(data["framebuffer"]).to(self.device),
+                                 int(data["frame_count"]), int(data["sample_cursor"]))
         self._segs_total = float(data["segments_traced"])
         self._segs_pending = []
 

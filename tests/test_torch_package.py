@@ -33,6 +33,19 @@ a = AdaptiveSession(get_scene("defocus"), RenderConfig(width=8, height=4, ray_de
                                                        backend="torch"))
 a.step()
 assert a.framebuffer.shape == (4, 8, 3) and float(a.framebuffer.mean()) > 0
+import tempfile
+from myraytracer_tpu_torch.render.camera import orbit_camera
+from myraytracer_tpu_torch.utils.profiling import enable_debug_nans, profile_trace
+from myraytracer_tpu_torch.viewer import LiveViewer
+v = LiveViewer(0)
+v.update(fb.numpy(), 1, 1)
+v.close()
+s.set_camera(orbit_camera(s.world.camera, 0.5, 0.1, 1.2))
+enable_debug_nans(True)
+with tempfile.TemporaryDirectory() as d:
+    with profile_trace(d):
+        s.step()
+enable_debug_nans(False)
 bad = sorted(m for m in sys.modules if m == "jax" or m.startswith(("jax.", "myraytracer_tpu.")))
 bad += [m for m in ("myraytracer_tpu", "jaxlib") if m in sys.modules]
 print("LOADED", bad)
