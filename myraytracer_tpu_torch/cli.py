@@ -17,10 +17,13 @@ frame, Mrays/s = traced ray segments per second, shadow rays included).
 
 Every scene renders on both backends: ``cuda`` (the default ``auto``) runs
 the CUDA kernels on the GPU and never falls back to the CPU; ``torch`` runs
-the plain integrator on the CPU. The denoiser and the feature pass run on
-the session's device. The JAX package's OBJ input (``--obj``,
-``--ground``) and sharding (``--shard``, ``--multihost``) are not in the
-port yet.
+the plain integrator on the CPU. ``cpu`` runs the native C++ renderer on
+the host's cores (sphere, mesh and mixed worlds, the default estimator);
+``auto`` logs the routing model's verdict on it but stays on the card. An
+OBJ file renders with ``--obj FILE`` (``--ground``: on the giant ground
+sphere instead of the ground quad). The denoiser and the feature pass run
+on the session's device. The JAX package's sharding (``--shard``,
+``--multihost``) is not in the port yet.
 """
 
 from __future__ import annotations
@@ -114,11 +117,24 @@ def build_parser() -> argparse.ArgumentParser:
         "shader.wgsl:331-334)",
     )
     p.add_argument(
-        "--backend", choices=["auto", "cuda", "torch"], default="auto",
+        "--obj", default=None, metavar="FILE",
+        help="render an OBJ mesh (overrides --scene; native C++ loader), "
+        "normalized over a ground quad",
+    )
+    p.add_argument(
+        "--ground", action="store_true",
+        help="with --obj: the giant ground sphere instead of the ground quad "
+        "(a mixed sphere and mesh world)",
+    )
+    p.add_argument(
+        "--backend", choices=["auto", "cuda", "torch", "cpu"], default="auto",
         help="cuda: the CUDA kernels on the GPU (never falls back to the CPU; "
         "without a GPU it raises); torch: the plain PyTorch integrator on the "
-        "CPU; auto: cuda. Left at auto, the MYRT_BACKEND env var overrides "
-        "(the analog of the reference's WGPU_BACKEND override, lib.rs:322)",
+        "CPU; cpu: the native C++ SAH-BVH renderer on the host's cores "
+        "(MYRT_CPU_THREADS; its own sample stream); auto: cuda, with the "
+        "routing model's verdict on cpu logged. Left at auto, the "
+        "MYRT_BACKEND env var overrides (the analog of the reference's "
+        "WGPU_BACKEND override, lib.rs:322)",
     )
     p.add_argument(
         "--gamma", type=parse_gamma, default=2.0, metavar="G|srgb|aces",
@@ -332,6 +348,38 @@ def _denoise_stats(denoise, spp):
     )
 
 
+def routing_verdict(pred: float, mrays: float):
+    """(holds, log line) of a measured steady-state rate against the routing
+    model's prediction for the backend that renders: it holds within 3x."""
+    from myraytracer_tpu_torch.native.cpu_backend import ANCHORED_ON
+
+    if mrays > 0 and (mrays < pred / 3.0 or mrays > pred * 3.0):
+        return False, (
+            f"routing model mispredicted this host: measured {mrays:.1f} Mrays/s vs "
+            f"predicted {pred:.1f} on the rendering backend; its anchors "
+            f"(native/cpu_backend.py) were measured on {ANCHORED_ON} and may not fit "
+            f"this hardware: set MYRT_CPU_THREADS or choose the --backend yourself")
+    return True, f"routing prediction holds: measured {mrays:.1f} Mrays/s vs predicted {pred:.1f}"
+
+
+def _check_routing_prediction(session, mrays: float):
+    """One-shot check of the routing model against the first steady-state
+    frame of a session that carries ``routing_prediction`` (``--backend
+    cpu``): the first sync holds the scene's build and only arms it; the
+    next warns on a miss past 3x and logs a hit. Returns the verdict when
+    it checks, else None."""
+    pred = getattr(session, "routing_prediction", None)
+    if not pred:
+        return None
+    if not getattr(session, "_route_check_armed", False):
+        session._route_check_armed = True  # skip the warmup-polluted sync
+        return None
+    session.routing_prediction = None  # check once
+    holds, msg = routing_verdict(pred, mrays)
+    (log.info if holds else log.warning)("%s", msg)
+    return holds
+
+
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
     level_name = args.log_level or os.environ.get("MYRT_LOG") or "info"
@@ -349,8 +397,8 @@ def main(argv=None) -> int:
     backend = args.backend
     if backend == "auto" and os.environ.get("MYRT_BACKEND"):
         backend = os.environ["MYRT_BACKEND"]
-        if backend not in ("auto", "cuda", "torch"):
-            raise SystemExit(f"MYRT_BACKEND={backend!r}: not auto|cuda|torch")
+        if backend not in ("auto", "cuda", "torch", "cpu"):
+            raise SystemExit(f"MYRT_BACKEND={backend!r}: not auto|cuda|torch|cpu")
     # A live viewer wants a frame's latency, not a batch's throughput: auto
     # frame batching drops to 1 under --serve unless set.
     frame_batch = args.frame_batch
@@ -378,10 +426,18 @@ def main(argv=None) -> int:
         return RenderConfig(**base)
 
     def build_world(scene_name: str, config: RenderConfig):
-        try:
-            world = get_scene(scene_name, seed=config.seed)
-        except KeyError as e:
-            raise SystemExit(f"--scene: {e.args[0]}") from None
+        if args.obj:
+            from myraytracer_tpu_torch.scene.presets import obj_scene
+
+            world = obj_scene(args.obj, ground_sphere=args.ground)
+        elif args.ground:
+            raise SystemExit("--ground needs --obj (it swaps the OBJ "
+                             "scene's ground quad for a sphere)")
+        else:
+            try:
+                world = get_scene(scene_name, seed=config.seed)
+            except KeyError as e:
+                raise SystemExit(f"--scene: {e.args[0]}") from None
         if args.ambient is not None:
             from myraytracer_tpu_torch.scene.api import World
 
@@ -423,7 +479,8 @@ def _run_uniform(args, config, make_config, build_world, trace_cm) -> int:
         log.info(
             "rendering scene=%s %dx%d spp/frame=%d depth=%d frames=%s "
             "frame_batch=%d backend=%s nee=%s rr=%d qmc=%s",
-            scene_name, session.width, session.height, config.samples_per_frame,
+            f"obj:{args.obj}{' --ground' if args.ground else ''}" if args.obj else scene_name,
+            session.width, session.height, config.samples_per_frame,
             config.ray_depth, args.frames if args.frames else "unbounded",
             session.frame_batch, session.backend_resolved, config.nee, config.rr,
             config.qmc,
@@ -558,11 +615,13 @@ def _run_uniform(args, config, make_config, build_world, trace_cm) -> int:
                     continue
                 segs = session.segments_traced  # waits for the queued steps
                 dt = time.perf_counter() - t_sync
+                mrays = (segs - segs_sync) / dt / 1e6
                 log.info(
                     "frame=%d spp=%d ms=%.1f Mrays/s=%.1f",
                     session.frame_count, session.accumulated_spp,
-                    dt * 1e3 / max(1, frames_sync), (segs - segs_sync) / dt / 1e6,
+                    dt * 1e3 / max(1, frames_sync), mrays,
                 )
+                _check_routing_prediction(session, mrays)
                 t_sync, segs_sync, frames_sync = time.perf_counter(), segs, 0
                 if viewer is not None:
                     # The encode runs on the viewer's thread while this one

@@ -57,7 +57,7 @@ class RenderConfig:
     # of the sample stream.
     gamma: Union[float, str] = 2.0
     sample_batch: int = 0  # samples traced per vectorized pass; 0 = auto
-    backend: str = "auto"  # "cuda" | "torch" | "auto"
+    backend: str = "auto"  # "cuda" | "torch" | "cpu" | "auto" (= cuda)
     shard: str = "none"  # "none" | "tiles" | "samples"
     # Progressive frames rendered per device call (0 = auto). K > 1
     # batches K frames into one kernel launch with per-frame outputs,

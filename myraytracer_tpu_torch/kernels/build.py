@@ -8,12 +8,20 @@ repository's file and nothing else, at first use, into the shared library
 beside the library as ``<stem>_<hash>.log``. ``build_all`` compiles several
 sources at once, one ``nvcc`` process each.
 
+The C++ host sources (``csrc/native/*.cpp``: the BVH builder, the OBJ
+loader and the CPU renderer) follow the same rule with the host compiler:
+``build_host`` links them into ``build/native/<name>_<hash>.so``, the hash
+over the sources, the flags, the compiler's version and what it makes of ``-march=native`` on
+this CPU, so a library built elsewhere or from older sources is never
+loaded.
+
 A ``Kernel`` is one entry point of such a library and its launch count.
 """
 
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import hashlib
 import os
 import pathlib
@@ -55,6 +63,74 @@ def library_path(source: pathlib.Path, flags: Sequence[str] = NVCC_FLAGS) -> pat
     h = hashlib.sha256(source.read_bytes())
     h.update(" ".join(flags).encode())
     return BUILD_DIR / f"{source.stem}_{h.hexdigest()[:16]}.so"
+
+
+NATIVE_BUILD_DIR = BUILD_DIR.parent / "native"
+# The library flags of the JAX package's native/Makefile.
+HOST_FLAGS = ("-O3", "-fPIC", "-Wall", "-std=c++17", "-march=native", "-DMRT_CPU_LIB", "-shared")
+HOST_LIBS = ("-lpthread",)
+
+
+def find_cxx() -> str:
+    """Path of the host C++ compiler: ``$CXX``, else ``g++`` or ``c++`` on
+    ``PATH``."""
+    for cand in (os.environ.get("CXX"), shutil.which("g++"), shutil.which("c++")):
+        if cand and shutil.which(cand):
+            return shutil.which(cand)
+    raise RuntimeError("no host C++ compiler (g++, c++ or $CXX) found")
+
+
+def host_command(cxx: str, sources: Sequence[pathlib.Path], out: pathlib.Path,
+                 flags: Sequence[str] = HOST_FLAGS) -> List[str]:
+    """The command that links ``sources`` into the shared library ``out``."""
+    return [cxx, *flags, "-o", str(out), *map(str, sources), *HOST_LIBS]
+
+
+def _host_identity(cxx: str) -> bytes:
+    """The compiler's version and what it makes of ``-march=native`` on
+    this CPU (the target and every instruction set it enables)."""
+    run = lambda *a: subprocess.run([cxx, *a], capture_output=True, text=True,  # noqa: E731
+                                    timeout=60).stdout
+    return (run("--version") + run("-march=native", "-Q", "--help=target")).encode()
+
+
+def host_library_path(name: str, sources: Sequence[pathlib.Path], cxx: str,
+                      flags: Sequence[str] = HOST_FLAGS) -> pathlib.Path:
+    """Where the host build of ``sources`` as they are now is cached."""
+    h = hashlib.sha256()
+    for src in sources:
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    h.update(" ".join((*flags, *HOST_LIBS)).encode())
+    h.update(_host_identity(cxx))
+    return NATIVE_BUILD_DIR / f"{name}_{h.hexdigest()[:16]}.so"
+
+
+def build_host(name: str, sources: Sequence[pathlib.Path],
+               flags: Sequence[str] = HOST_FLAGS) -> pathlib.Path:
+    """Link ``sources`` with the host compiler into ``name``'s library unless
+    it is built already; returns its path. The compiler's output goes to the
+    ``.log`` beside it; a failed build raises with its errors. Processes
+    that build at once take turns, so one compiles and the rest load."""
+    cxx = find_cxx()
+    out = host_library_path(name, sources, cxx, flags)
+    if out.exists():
+        return out
+    NATIVE_BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with open(NATIVE_BUILD_DIR / f"{name}.lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        if out.exists():
+            return out
+        with tempfile.TemporaryDirectory(dir=NATIVE_BUILD_DIR) as tmp:
+            part = pathlib.Path(tmp) / out.name
+            proc = subprocess.run(host_command(cxx, sources, part, flags),
+                                  capture_output=True, text=True)
+            out.with_suffix(".log").write_text(proc.stdout + proc.stderr)
+            if proc.returncode != 0:
+                raise RuntimeError(f"{cxx} failed ({proc.returncode}) building {name}:\n"
+                                   f"{proc.stderr}")
+            os.replace(part, out)  # atomic: never half a file
+    return out
 
 
 def build_all(sources: Iterable[pathlib.Path],

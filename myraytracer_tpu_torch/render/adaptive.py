@@ -39,7 +39,7 @@ from myraytracer_tpu_torch.render.dispatch import resolve_backend
 from myraytracer_tpu_torch.render.lights import extract_lights
 from myraytracer_tpu_torch.render.session import (
     CHECKPOINT_VERSION, camera_from_view, camera_view, fma_f32, scene_fingerprint,
-    wants_spatial_sort,
+    wants_spatial_sort, wants_triangle_bvh,
 )
 from myraytracer_tpu_torch.scene import api
 from myraytracer_tpu_torch.scene.compile import CompiledScene, compile_scene
@@ -248,7 +248,7 @@ class AdaptiveSession:
     per-image sample budget (in units of uniform frames) and returns the
     framebuffer. Sessions checkpoint and resume exactly. Backends ``auto``
     and ``cuda`` run the CUDA adaptive kernel (and raise without a GPU),
-    ``torch`` the plain oracle on the CPU.
+    ``torch`` the plain oracle on the CPU; ``cpu`` raises.
     """
 
     def __init__(
@@ -267,6 +267,12 @@ class AdaptiveSession:
         self.camera = world.camera  # the view rendered, as RenderSession.camera
         self.width, self.height = config.resolve_size()
         self.backend_resolved = resolve_backend(config)
+        if self.backend_resolved == "cpu":
+            raise ValueError(
+                "adaptive sampling runs on the cuda and torch backends (the "
+                "native cpu renderer has no block renderer); use backend "
+                "'auto', 'cuda' or 'torch'"
+            )
         self.device = torch.device(
             "cuda" if self.backend_resolved == "cuda" else "cpu"
         )
@@ -281,6 +287,7 @@ class AdaptiveSession:
 
         self.scene = compile_scene(
             world, spatial_sort=wants_spatial_sort(world), device=self.device,
+            triangle_bvh=wants_triangle_bvh(world, self.backend_resolved),
         )
         if not world.camera.reference_mode:
             self.scene = self.scene._replace(cam=torch.from_numpy(

@@ -122,35 +122,37 @@ def _sphere_t(o: V3, d: V3, scene: CompiledScene, sl: slice, t_minf, big):
     return torch.where(valid, t_cand, big)
 
 
-def _triangle_t(o: V3, d: V3, tris: CompiledTriangles, sl: slice, t_minf, big):
-    """Candidate t of triangles ``sl`` against every lane, [k, lanes]
-    (Möller-Trumbore, two-sided; JAX ``hit.py:_mt_candidate``)."""
-    col = lambda a: a[sl, None]  # noqa: E731
-    v0x, v0y, v0z = col(tris.v0.x), col(tris.v0.y), col(tris.v0.z)
-    e1x, e1y, e1z = col(tris.e1.x), col(tris.e1.y), col(tris.e1.z)
-    e2x, e2y, e2z = col(tris.e2.x), col(tris.e2.y), col(tris.e2.z)
-    ox, oy, oz = o.x[None, :], o.y[None, :], o.z[None, :]
-    dx, dy, dz = d.x[None, :], d.y[None, :], d.z[None, :]
-    px = dy * e2z - dz * e2y
-    py = dz * e2x - dx * e2z
-    pz = dx * e2y - dy * e2x
-    det = e1x * px + e1y * py + e1z * pz
+def _mt(o: V3, d: V3, v0: V3, e1: V3, e2: V3, t_minf, big):
+    """Möller-Trumbore candidate t (two-sided; JAX ``hit.py:_mt_candidate``)
+    of rays ``o + t d`` against triangles ``v0, e1, e2``, all broadcast
+    together; ``big`` where a triangle is missed."""
+    px = d.y * e2.z - d.z * e2.y
+    py = d.z * e2.x - d.x * e2.z
+    pz = d.x * e2.y - d.y * e2.x
+    det = e1.x * px + e1.y * py + e1.z * pz
     small = det.abs() < TRI_DET_EPS
     inv_det = torch.reciprocal(torch.where(small, 1.0, det))
-    tvx = ox - v0x
-    tvy = oy - v0y
-    tvz = oz - v0z
+    tvx = o.x - v0.x
+    tvy = o.y - v0.y
+    tvz = o.z - v0.z
     u = (tvx * px + tvy * py + tvz * pz) * inv_det
-    qx = tvy * e1z - tvz * e1y
-    qy = tvz * e1x - tvx * e1z
-    qz = tvx * e1y - tvy * e1x
-    v = (dx * qx + dy * qy + dz * qz) * inv_det
-    t_cand = (e2x * qx + e2y * qy + e2z * qz) * inv_det
+    qx = tvy * e1.z - tvz * e1.y
+    qy = tvz * e1.x - tvx * e1.z
+    qz = tvx * e1.y - tvy * e1.x
+    v = (d.x * qx + d.y * qy + d.z * qz) * inv_det
+    t_cand = (e2.x * qx + e2.y * qy + e2.z * qz) * inv_det
     valid = (
         ~small & (u >= 0.0) & (v >= 0.0) & (u + v <= 1.0)
         & (t_cand >= t_minf) & (t_cand < big)
     )
     return torch.where(valid, t_cand, big)
+
+
+def _triangle_t(o: V3, d: V3, tris: CompiledTriangles, sl: slice, t_minf, big):
+    """Candidate t of triangles ``sl`` against every lane, [k, lanes]."""
+    col = lambda a: V3(a.x[sl, None], a.y[sl, None], a.z[sl, None])  # noqa: E731
+    row = lambda a: V3(a.x[None, :], a.y[None, :], a.z[None, :])  # noqa: E731
+    return _mt(row(o), row(d), col(tris.v0), col(tris.e1), col(tris.e2), t_minf, big)
 
 
 def _first_min(t_cand: torch.Tensor, rows: torch.Tensor):
@@ -251,6 +253,63 @@ def _triangle_candidates(
     # Möller-Trumbore holds about twice the temporaries: half the chunk.
     return _sweep(lambda sl: _triangle_t(o, d, tris, sl, t_minf, big),
                   n, _chunk_size(n, 2 * t_best.shape[0]), t_best, i_best)
+
+
+def _triangle_bvh_candidates(
+    o: V3, d: V3, tris: CompiledTriangles, t_min: float, t_max: float, t_init=None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(t_best, i_best) over the triangles through their flat BVH
+    (``tris.bvh``), from the running ``t_init``: the JAX package's stackless
+    skip-link traversal (``hit.py:_triangle_bvh_candidates``), one cursor a
+    lane. At node ``i`` a lane whose ray meets the box before its running
+    t_best descends to ``i + 1``, or tests a leaf's ``count`` triangles,
+    and continues at ``skip[i]``; a miss jumps to ``skip[i]``; a lane is
+    done when its cursor reaches M. Each step runs on the lanes still
+    walking, which leaves every lane's arithmetic as JAX's."""
+    t_minf, big, t_best, i_best = _window(o, t_min, t_max, t_init)
+    bvh = tris.bvh
+    m = bvh.count.shape[0]
+    iv = _inv_dir(d)
+    sub = lambda v, ix: V3(v.x[ix], v.y[ix], v.z[ix])  # noqa: E731
+    lanes = torch.arange(t_best.shape[0], device=t_best.device)
+    node = torch.zeros_like(lanes)
+    ol, dl, ivl, tb, ib = o, d, iv, t_best.clone(), i_best.clone()
+    t_best, i_best = t_best.clone(), i_best.clone()
+    mn, mx = torch.minimum, torch.maximum
+    while lanes.numel():
+        g = lambda a: a[node]  # noqa: E731
+        first, count, skip = g(bvh.first).long(), g(bvh.count).long(), g(bvh.skip).long()
+        tx0 = (g(bvh.lo.x) - ol.x) * ivl.x
+        tx1 = (g(bvh.hi.x) - ol.x) * ivl.x
+        ty0 = (g(bvh.lo.y) - ol.y) * ivl.y
+        ty1 = (g(bvh.hi.y) - ol.y) * ivl.y
+        tz0 = (g(bvh.lo.z) - ol.z) * ivl.z
+        tz1 = (g(bvh.hi.z) - ol.z) * ivl.z
+        tn = mx(mx(mn(tx0, tx1), mn(ty0, ty1)), mx(mn(tz0, tz1), t_minf))
+        tf = mn(mn(mx(tx0, tx1), mx(ty0, ty1)), mn(mx(tz0, tz1), tb))
+        enter = tn <= tf
+        is_leaf = count > 0
+        test_leaf = enter & is_leaf
+        if test_leaf.any():
+            for k in range(int(count[test_leaf].max())):
+                live = test_leaf & (k < count)
+                count_work("triangle", live.sum() if counting() else 0)
+                pidx = torch.where(live, first + k, 0)
+                t_cand = _mt(ol, dl, sub(tris.v0, pidx), sub(tris.e1, pidx),
+                             sub(tris.e2, pidx), t_minf, big)
+                t_cand = torch.where(live, t_cand, big)
+                better = t_cand < tb
+                tb = torch.where(better, t_cand, tb)
+                ib = torch.where(better, pidx, ib)
+        node = torch.where(enter & ~is_leaf, node + 1, skip)
+        walking = node < m
+        if not bool(walking.all()):
+            done = ~walking
+            t_best[lanes[done]] = tb[done]
+            i_best[lanes[done]] = ib[done]
+            lanes, node, tb, ib = lanes[walking], node[walking], tb[walking], ib[walking]
+            ol, dl, ivl = sub(ol, walking), sub(dl, walking), sub(ivl, walking)
+    return t_best, i_best
 
 
 # --- the gated sweep --------------------------------------------------------
@@ -386,6 +445,9 @@ def _closest(o: V3, d: V3, scene: CompiledScene, t_min: float, t_max: float,
     if gates is not None and gates.tri_cull:
         tt, it, tri_wins = _triangle_candidates_gated(
             o, d, scene.tris, gates, ts, t_min, t_max)
+    elif gates is None and scene.tris.bvh is not None:
+        tt, it = _triangle_bvh_candidates(o, d, scene.tris, t_min, t_max, t_init)
+        tri_wins = tt < ts
     else:
         tt, it = _triangle_candidates(o, d, scene.tris, t_min, t_max, t_init)
         tri_wins = tt < ts  # spheres first: an equal-t triangle loses

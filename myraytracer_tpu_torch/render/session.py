@@ -42,6 +42,9 @@ CHECKPOINT_VERSION = 3
 # Spheres or triangles above which the compiler sorts the scene spatially,
 # as the JAX session does; the order decides equal-t ties, so it must match.
 SPATIAL_SORT_MIN = 64
+# Triangles above which the plain integrator's scene carries a triangle BVH,
+# as the JAX jnp session's does (the CUDA kernel sweeps behind its gates).
+TRIANGLE_BVH_MIN = 512
 
 
 def wants_spatial_sort(world: api.World) -> bool:
@@ -49,6 +52,13 @@ def wants_spatial_sort(world: api.World) -> bool:
     ``render/adaptive.py:336``): sort when either table passes 64."""
     return (len(world.spheres) > SPATIAL_SORT_MIN
             or world.triangle_count > SPATIAL_SORT_MIN)
+
+
+def wants_triangle_bvh(world: api.World, backend: str) -> bool:
+    """The JAX sessions' rule (``render/session.py:116-121``,
+    ``render/adaptive.py:337``) for the port: the plain torch integrator
+    traverses a BVH past 512 triangles; the kernel never gets one."""
+    return backend == "torch" and world.triangle_count > TRIANGLE_BVH_MIN
 
 
 def fma_f32(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
@@ -124,11 +134,12 @@ class Accumulation(NamedTuple):
 
 def resolve_device_backend(backend: str) -> str:
     """``auto`` → ``cuda``: the port renders on the card unless the caller
-    names ``torch`` (the plain integrator on the CPU)."""
+    names ``torch`` (the plain integrator on the CPU) or ``cpu`` (the native
+    C++ renderer)."""
     if backend == "auto":
         return "cuda"
-    if backend not in ("cuda", "torch"):
-        raise ValueError(f"unknown backend {backend!r}: use auto|cuda|torch")
+    if backend not in ("cuda", "torch", "cpu"):
+        raise ValueError(f"unknown backend {backend!r}: use auto|cuda|torch|cpu")
     return backend
 
 
@@ -136,11 +147,12 @@ class RenderSession:
     """Progressive accumulation over frames of ``samples_per_frame`` samples.
 
     ``renderer_factory`` builds the frame renderer (``make_renderer`` of
-    ``render.integrator`` or ``kernels.trace``). By default the config's
-    backend picks it through ``dispatch``: ``auto`` and ``cuda`` render with
-    the CUDA kernel on the GPU (and raise without one), ``torch`` with the
-    plain integrator on the CPU. The recorded backend is the one that
-    renders (checkpoint provenance).
+    ``render.integrator`` or ``kernels.trace``, or ``make_cpu_factory`` of
+    ``native.cpu_backend``). By default the config's backend picks it
+    through ``dispatch``: ``auto`` and ``cuda`` render with the CUDA kernel
+    on the GPU (and raise without one), ``torch`` with the plain integrator
+    on the CPU, ``cpu`` with the native renderer. The recorded backend is
+    the one that renders (checkpoint provenance).
     """
 
     def __init__(
@@ -159,13 +171,14 @@ class RenderSession:
             from myraytracer_tpu_torch.render import dispatch
 
             resolved = dispatch.resolve_backend(config)
-            renderer_factory = dispatch.renderer_factory(resolved)
+            renderer_factory = dispatch.renderer_factory(resolved, world, config)
         else:
             resolved = resolve_device_backend(config.backend)
         self.backend_resolved = resolved
         self.device = torch.device("cuda" if resolved == "cuda" else "cpu")
         self.scene = compile_scene(
             world, spatial_sort=wants_spatial_sort(world), device=self.device,
+            triangle_bvh=wants_triangle_bvh(world, resolved),
         )
         if not world.camera.reference_mode:
             # The packed runtime camera: set_camera swaps it, and the

@@ -18,8 +18,12 @@ triangle chunk width (``TRI_CHUNK_AUTO``) in the same way.
 
 Triangle rows are ``v0`` and the edges ``e1 = v1 - v0``, ``e2 = v2 - v0``;
 padding slots have zero edges, so their Möller-Trumbore determinant is 0
-and they never hit. The JAX package's optional triangle BVH (built by its
-native module) is not in the port.
+and they never hit. ``triangle_bvh`` builds the flat skip-link BVH
+(``CompiledTriangleBVH``, by the native builder, ``native.build_bvh``) and
+orders the triangles by its leaves instead of the centroid sort, as the
+JAX package does; the plain integrator traverses it
+(``render/hit.py``), the CUDA kernel sweeps behind its own gates and never
+gets one.
 
 Textured worlds get three more rows a primitive (``tex_ty``, ``albedo2``,
 ``tex_scale``; ``render/textures.py``), spheres and triangles alike, and
@@ -45,6 +49,25 @@ SPHERE_PAD = 8
 LEADERS = 8
 
 
+class CompiledTriangleBVH(NamedTuple):
+    """Flat skip-link BVH over the (reordered) triangle tensors, [M] each.
+
+    Traversal contract: node i descends to i+1 on a box hit (or tests its
+    leaf range ``[first, first + count)``), else jumps to ``skip[i]``; done
+    when the cursor reaches M.
+    """
+
+    lo: V3  # [M] f32 each
+    hi: V3
+    first: torch.Tensor  # [M] i32
+    count: torch.Tensor  # [M] i32 (0 = interior)
+    skip: torch.Tensor  # [M] i32
+
+
+# Triangles a BVH leaf holds at most (the JAX package's).
+BVH_MAX_LEAF = 4
+
+
 class CompiledTriangles(NamedTuple):
     """SoA triangle tensors, each [T] on the scene's device; padding slots
     have zero edges (degenerate: they never hit)."""
@@ -60,6 +83,7 @@ class CompiledTriangles(NamedTuple):
     tex_ty: Optional[torch.Tensor] = None  # [T] i32
     albedo2: Optional[V3] = None  # [T] f32 each (checker ODD color)
     tex_scale: Optional[torch.Tensor] = None  # [T] f32
+    bvh: Optional[CompiledTriangleBVH] = None
 
     @property
     def padded_size(self) -> int:
@@ -112,9 +136,9 @@ class CompiledScene(NamedTuple):
 
 # The names of the JAX ``CompiledScene`` leaves, in its pytree order (the
 # order ``scene_fingerprint`` hashes): the sphere leaves every scene has,
-# the triangle leaves a scene with meshes has (their texture rows last, on
-# a textured scene), then a textured scene's sphere texture rows and its
-# bitmap, if it has one.
+# the triangle leaves a scene with meshes has (then its BVH's, when it has
+# one, and its texture rows, on a textured scene), then a textured scene's
+# sphere texture rows and its bitmap, if it has one.
 SPHERE_LEAVES = (
     "center.x", "center.y", "center.z", "radius", "radius_sq",
     "albedo.x", "albedo.y", "albedo.z", "fuzz", "ior", "mat_ty",
@@ -123,12 +147,14 @@ TRIANGLE_LEAVES = tuple(
     f"tris.{v}.{c}" for v in ("v0", "e1", "e2") for c in "xyz"
 ) + ("tris.albedo.x", "tris.albedo.y", "tris.albedo.z",
      "tris.fuzz", "tris.ior", "tris.mat_ty")
+BVH_LEAVES = tuple(f"tris.bvh.{b}.{c}" for b in ("lo", "hi") for c in "xyz") + (
+    "tris.bvh.first", "tris.bvh.count", "tris.bvh.skip")
 TRIANGLE_TEXTURE_LEAVES = (
     "tris.tex_ty", "tris.albedo2.x", "tris.albedo2.y", "tris.albedo2.z", "tris.tex_scale",
 )
 TEXTURE_LEAVES = ("tex_ty", "albedo2.x", "albedo2.y", "albedo2.z", "tex_scale")
 IMAGE_LEAF = "tex_image"
-SCENE_LEAVES = (SPHERE_LEAVES + TRIANGLE_LEAVES + TRIANGLE_TEXTURE_LEAVES
+SCENE_LEAVES = (SPHERE_LEAVES + TRIANGLE_LEAVES + BVH_LEAVES + TRIANGLE_TEXTURE_LEAVES
                 + TEXTURE_LEAVES + (IMAGE_LEAF,))
 
 
@@ -274,12 +300,14 @@ def _auto_tri_chunk(n_tris: int) -> int:
 
 
 def _compile_triangles(meshes, pad_to: int, spatial_sort: bool,
-                       partition: str = "kd", textured: bool = False) -> Dict[str, np.ndarray]:
-    """The triangle leaves (``TRIANGLE_LEAVES``, and ``TRIANGLE_TEXTURE_LEAVES``
-    when ``textured``) of ``meshes`` as numpy arrays, padded to a multiple
-    of ``pad_to`` with zero-edge slots; past 64 triangles, ``spatial_sort``
-    orders them by centroid as the JAX package does (``kd`` groups of the
-    auto chunk width, or Morton)."""
+                       partition: str = "kd", textured: bool = False,
+                       with_bvh: bool = False) -> Dict[str, np.ndarray]:
+    """The triangle leaves (``TRIANGLE_LEAVES``, ``BVH_LEAVES`` with ``with_bvh``
+    and ``TRIANGLE_TEXTURE_LEAVES`` when ``textured``) of ``meshes`` as
+    numpy arrays, padded to a multiple of ``pad_to`` with zero-edge slots.
+    ``with_bvh`` orders them by the BVH's leaves; else, past 64 triangles,
+    ``spatial_sort`` orders them by centroid as the JAX package does (``kd``
+    groups of the auto chunk width, or Morton)."""
     t = sum(len(m) for m in meshes)
     tpad = max(pad_to, -(-max(t, 1) // pad_to) * pad_to)
     v0 = np.zeros((t, 3), np.float32)
@@ -314,7 +342,7 @@ def _compile_triangles(meshes, pad_to: int, spatial_sort: bool,
         tex_scale[k:k + n_m] = tsc
         k += n_m
 
-    if spatial_sort and t > 64:
+    if spatial_sort and not with_bvh and t > 64:
         cent = v0 + (e1 + e2) / 3.0
         if partition == "kd":
             order = kd_chunk_order(cent, _auto_tri_chunk(t))
@@ -325,6 +353,24 @@ def _compile_triangles(meshes, pad_to: int, spatial_sort: bool,
         tex_ty, albedo2, tex_scale = tex_ty[order], albedo2[order], tex_scale[order]
 
     out = {}
+    if with_bvh and t > 0:
+        from myraytracer_tpu_torch.native import build_bvh
+
+        v1 = v0 + e1
+        v2 = v0 + e2
+        flat = build_bvh(np.minimum(np.minimum(v0, v1), v2),
+                         np.maximum(np.maximum(v0, v1), v2), max_leaf=BVH_MAX_LEAF)
+        # Triangle rows in leaf order, so a leaf is a contiguous range.
+        perm = flat.order
+        v0, e1, e2, albedo = v0[perm], e1[perm], e2[perm], albedo[perm]
+        fuzz, ior, mat_ty = fuzz[perm], ior[perm], mat_ty[perm]
+        tex_ty, albedo2, tex_scale = tex_ty[perm], albedo2[perm], tex_scale[perm]
+        for b, a in (("lo", flat.nodes_min), ("hi", flat.nodes_max)):
+            for j, c in enumerate("xyz"):
+                out[f"tris.bvh.{b}.{c}"] = a[:, j]
+        out["tris.bvh.first"] = flat.first
+        out["tris.bvh.count"] = flat.count
+        out["tris.bvh.skip"] = flat.skip
     vectors = [("v0", v0), ("e1", e1), ("e2", e2), ("albedo", albedo)]
     if textured:
         vectors.append(("albedo2", albedo2))
@@ -367,13 +413,14 @@ def compile_scene(
     partition: str = "kd",
     partition_chunk: int = 48,
     device="cpu",
+    triangle_bvh: bool = False,
 ) -> CompiledScene:
     """Flatten an api.World into padded SoA tensors on ``device``.
 
-    ``spatial_sort``, ``partition`` and ``partition_chunk`` order the
-    spheres and triangles as the JAX ``compile_scene`` does with the same
-    arguments (and no triangle BVH); a textured world's texture rows and
-    bitmap too.
+    ``spatial_sort``, ``partition``, ``partition_chunk`` and
+    ``triangle_bvh`` order the spheres and triangles, and build the
+    triangle BVH, as the JAX ``compile_scene`` does with the same
+    arguments; a textured world's texture rows and bitmap too.
     """
     n = len(world.spheres)
     spheres = world.spheres
@@ -430,7 +477,7 @@ def compile_scene(
         arrays[IMAGE_LEAF] = img_tex.data
     if world.meshes:
         arrays.update(_compile_triangles(world.meshes, pad_to, spatial_sort, partition,
-                                         textured))
+                                         textured, with_bvh=bool(triangle_bvh)))
     return scene_from_numpy(arrays, device=device)
 
 
@@ -438,7 +485,8 @@ def scene_from_numpy(arrays: Dict[str, np.ndarray], device="cpu") -> CompiledSce
     """Build the port's scene from a compiled scene's arrays.
 
     ``arrays`` maps each name of ``SPHERE_LEAVES``, for a scene with meshes
-    each of ``TRIANGLE_LEAVES``, for a textured scene each of
+    each of ``TRIANGLE_LEAVES`` (and of ``BVH_LEAVES``, when it has a
+    triangle BVH), for a textured scene each of
     ``TEXTURE_LEAVES`` (and of ``TRIANGLE_TEXTURE_LEAVES`` with meshes),
     and optionally ``IMAGE_LEAF`` (the [TH, TW, 3] bitmap) and ``"cam"``
     (the [19] packed camera), to a numpy array: the leaves of a JAX
@@ -448,6 +496,8 @@ def scene_from_numpy(arrays: Dict[str, np.ndarray], device="cpu") -> CompiledSce
     has_tris = any(k in arrays for k in TRIANGLE_LEAVES)
     textured = any(k in arrays for k in TEXTURE_LEAVES + TRIANGLE_TEXTURE_LEAVES)
     need = SPHERE_LEAVES + (TRIANGLE_LEAVES if has_tris else ())
+    if has_tris and any(k in arrays for k in BVH_LEAVES):
+        need += BVH_LEAVES
     if textured:
         need += TEXTURE_LEAVES + (TRIANGLE_TEXTURE_LEAVES if has_tris else ())
     missing = [k for k in need if k not in arrays]
@@ -460,6 +510,11 @@ def scene_from_numpy(arrays: Dict[str, np.ndarray], device="cpu") -> CompiledSce
     v3 = lambda p: V3(t(f"{p}x", f32), t(f"{p}y", f32), t(f"{p}z", f32))  # noqa: E731
     tris = None
     if has_tris:
+        bvh = None
+        if any(k in arrays for k in BVH_LEAVES):
+            bvh = CompiledTriangleBVH(
+                lo=v3("tris.bvh.lo."), hi=v3("tris.bvh.hi."), first=t("tris.bvh.first", i32),
+                count=t("tris.bvh.count", i32), skip=t("tris.bvh.skip", i32))
         tris = CompiledTriangles(
             v0=v3("tris.v0."), e1=v3("tris.e1."), e2=v3("tris.e2."),
             albedo=v3("tris.albedo."), fuzz=t("tris.fuzz", f32),
@@ -467,6 +522,7 @@ def scene_from_numpy(arrays: Dict[str, np.ndarray], device="cpu") -> CompiledSce
             tex_ty=opt("tris.tex_ty", i32),
             albedo2=v3("tris.albedo2.") if textured else None,
             tex_scale=opt("tris.tex_scale", f32),
+            bvh=bvh,
         )
     return CompiledScene(
         center=v3("center."),
@@ -483,3 +539,86 @@ def scene_from_numpy(arrays: Dict[str, np.ndarray], device="cpu") -> CompiledSce
         tex_scale=opt("tex_scale", f32),
         tex_image=opt(IMAGE_LEAF, f32),
     )
+
+
+def compile_reference_layout(world: api.World) -> Dict[str, object]:
+    """Reproduce the reference's pool/range flattening semantics.
+
+    Mirrors the behavior of ``Object::new``'s SoA packing
+    (``raytracer/src/lib.rs:722-799``): spheres keep insertion order; each
+    material is appended to its per-type pool in sphere order and the sphere
+    records (type, index-within-pool); the three typed streams are built by
+    appending ranges (sphere centers then lambertian albedos then metal
+    albedos into the vec4 stream; radii then fuzzes into the f32 stream;
+    material types then material indices into the i32 stream).
+
+    Port of the JAX package's function, for parity tests and as
+    documentation of the reference contract; the renderer itself consumes
+    :func:`compile_scene`.
+    """
+    sphere_centers = []
+    sphere_radii = []
+    sphere_mat_tys = []
+    sphere_mat_idxs = []
+    lamb_albedos = []
+    metal_albedos = []
+    metal_fuzzes = []
+    dielectric_iors = []
+
+    for s in world.spheres:
+        sphere_centers.append([*s.center, 1.0])  # vec4 w=1.0 like lib.rs:769
+        sphere_radii.append(s.radius)
+        m = s.material
+        sphere_mat_tys.append(m.type_id)
+        if isinstance(m, api.Lambertian):
+            sphere_mat_idxs.append(len(lamb_albedos))
+            # Textured albedo (extension) has no reference-layout slot;
+            # its base color stands in (the reference predates textures).
+            a = _material_row(m)[0]
+            lamb_albedos.append([*a, 1.0])
+        elif isinstance(m, api.Metal):
+            sphere_mat_idxs.append(len(metal_albedos))
+            metal_albedos.append([*m.albedo, 1.0])
+            metal_fuzzes.append(m.fuzz)
+        elif isinstance(m, api.Dielectric):
+            sphere_mat_idxs.append(len(dielectric_iors))
+            dielectric_iors.append(m.ior)
+
+    vec4_f32_data = []
+    f32_data = []
+    i32_data = []
+
+    def push(stream, items):
+        base = len(stream)
+        stream.extend(items)
+        return base
+
+    ranges = {
+        "spheres": {
+            "center_base_idx": push(vec4_f32_data, sphere_centers),
+            "radius_base_idx": push(f32_data, sphere_radii),
+            "material_ty_base_idx": push(i32_data, sphere_mat_tys),
+            "material_idx_base_idx": push(i32_data, sphere_mat_idxs),
+            "length": len(world.spheres),
+        },
+        "lambertians": {
+            "albedo_base_idx": push(vec4_f32_data, lamb_albedos),
+            "length": len(lamb_albedos),
+        },
+        "metals": {
+            "albedo_base_idx": push(vec4_f32_data, metal_albedos),
+            "fuzz_base_idx": push(f32_data, metal_fuzzes),
+            "length": len(metal_albedos),
+        },
+        # Extension beyond the reference layout:
+        "dielectrics": {
+            "ior_base_idx": push(f32_data, dielectric_iors),
+            "length": len(dielectric_iors),
+        },
+    }
+    return {
+        "world": ranges,
+        "vec4_f32_data": np.asarray(vec4_f32_data, np.float32).reshape(-1, 4),
+        "f32_data": np.asarray(f32_data, np.float32),
+        "i32_data": np.asarray(i32_data, np.int32),
+    }

@@ -254,14 +254,54 @@ def cornell_scene() -> World:
 
 
 def obj_scene(path, material=None, ground_sphere: bool = False) -> World:
-    """Render an OBJ file (mesh normalized over a ground).
+    """Render an OBJ file: mesh normalized to unit size over a ground.
 
-    Needs the native OBJ loader and triangle support, neither of which the
-    PyTorch port has yet.
+    Uses the native C++ OBJ loader (``myraytracer_tpu_torch.native``;
+    Python fallback). The mesh is recentered and scaled to 1.1 over its
+    bounding box's diagonal at (0, 0.55, -1.2), so any model frames
+    sensibly with the stock camera. ``ground_sphere`` swaps the ground
+    quad for the RTiOW giant sphere: a mixed sphere and mesh world, the
+    most common real scene shape.
     """
-    raise NotImplementedError(
-        "obj scenes need the native OBJ loader and triangle meshes, which "
-        "the PyTorch port does not support yet"
+    from myraytracer_tpu_torch.native import load_obj
+    from myraytracer_tpu_torch.scene import meshgen
+    from myraytracer_tpu_torch.scene.api import Mesh
+
+    vertices, triangles = load_obj(path)
+    if len(triangles) == 0:
+        raise ValueError(f"no triangles in {path}")
+    lo = vertices.min(axis=0)
+    hi = vertices.max(axis=0)
+    center = (lo + hi) / 2
+    scale = 1.1 / max(float(np.linalg.norm(hi - lo)), 1e-9)
+    vertices = (vertices - center) * scale + np.array(
+        [0.0, 0.55, -1.2], np.float32
+    )
+
+    mesh = Mesh(vertices, triangles, material or Lambertian((0.4, 0.5, 0.8)))
+    camera = Camera(
+        lookfrom=(0.8, 1.1, 1.2),
+        lookat=(0.0, 0.5, -1.2),
+        vup=(0.0, 1.0, 0.0),
+        vfov_degrees=40.0,
+        aperture=0.0,
+    )
+    if ground_sphere:
+        return World(
+            spheres=[
+                Sphere((0.0, -1000.0, 0.0), 1000.0,
+                       Lambertian((0.6, 0.6, 0.6))),
+            ],
+            meshes=[mesh],
+            camera=camera,
+        )
+    gv, gf = meshgen.quad(
+        (-6.0, 0.0, 4.0), (6.0, 0.0, 4.0), (6.0, 0.0, -8.0), (-6.0, 0.0, -8.0)
+    )
+    return World(
+        spheres=[],
+        meshes=[Mesh(gv, gf, Lambertian((0.6, 0.6, 0.6))), mesh],
+        camera=camera,
     )
 
 

@@ -243,9 +243,9 @@ def test_cli_live_flags_refuse_what_they_cannot_do(tmp_path):
 
 
 def test_cli_flags_differ_from_the_jax_clis_by_the_unported_modules():
-    """The two parsers' flags differ by exactly the OBJ input (--obj,
-    --ground) and the sharding (--shard, --multihost); the backend choices
-    by the JAX package's names for its paths."""
+    """The two parsers' flags differ by exactly the sharding (--shard,
+    --multihost); the backend choices by the JAX package's names for its
+    paths (cpu is both packages' native renderer)."""
     from myraytracer_tpu import cli as jcli
 
     def flags(parser):
@@ -255,9 +255,9 @@ def test_cli_flags_differ_from_the_jax_clis_by_the_unported_modules():
     mine, my_choices = flags(cli.build_parser())
     theirs, their_choices = flags(jcli.build_parser())
     assert mine <= theirs
-    assert theirs - mine == {"--obj", "--ground", "--shard", "--multihost"}
-    assert len(mine - {"-h", "--help"}) == 29
-    assert set(my_choices["backend"]) == {"auto", "cuda", "torch"}
+    assert theirs - mine == {"--shard", "--multihost"}
+    assert len(mine - {"-h", "--help"}) == 31
+    assert set(my_choices["backend"]) == {"auto", "cuda", "torch", "cpu"}
     assert set(their_choices["backend"]) == {"auto", "jnp", "pallas", "cpu"}
 
 

@@ -46,6 +46,17 @@ with tempfile.TemporaryDirectory() as d:
     with profile_trace(d):
         s.step()
 enable_debug_nans(False)
+import numpy as np
+from myraytracer_tpu_torch import native
+from myraytracer_tpu_torch.native import anchors, bvh_py, cpu_backend, meshdump, obj_py
+from myraytracer_tpu_torch.scene.presets import obj_scene
+assert native.native_available(), native.native_error()
+assert native.build_bvh(np.zeros((3, 3), np.float32), np.ones((3, 3), np.float32)).count.size
+with tempfile.TemporaryDirectory() as d:
+    open(d + "/t.obj", "w").write("v 0 0 0\\nv 1 0 0\\nv 0 1 0\\nf 1 2 3\\n")
+    obj = obj_scene(d + "/t.obj", ground_sphere=True)
+c = make_session(obj, RenderConfig(width=8, height=4, ray_depth=3, backend="cpu"))
+assert float(c.run(1).mean()) > 0 and c.routing_prediction > 0
 bad = sorted(m for m in sys.modules if m == "jax" or m.startswith(("jax.", "myraytracer_tpu.")))
 bad += [m for m in ("myraytracer_tpu", "jaxlib") if m in sys.modules]
 print("LOADED", bad)

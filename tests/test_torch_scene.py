@@ -145,9 +145,16 @@ def test_unsupported_worlds_raise(name):
     RenderSession(world, RenderConfig(width=8, height=8, ray_depth=2, backend="torch")).step()
 
 
-def test_obj_scene_raises():
-    with pytest.raises(NotImplementedError):
-        tpresets.obj_scene("model.obj")
+def test_obj_scene_raises(tmp_path):
+    """The obj preset loads files now: it raises on a missing file and on
+    one without a triangle, as the JAX package's does."""
+    with pytest.raises(FileNotFoundError):
+        tpresets.obj_scene(tmp_path / "model.obj")
+    (tmp_path / "points.obj").write_text("v 0 0 0\nv 1 0 0\n")
+    with pytest.raises(ValueError, match="no triangles"):
+        tpresets.obj_scene(tmp_path / "points.obj")
+    with pytest.raises(ValueError, match="no triangles"):
+        jpresets.obj_scene(tmp_path / "points.obj")
 
 
 def test_api_rejects_negative_albedo():
