@@ -88,10 +88,12 @@ def host_command(cxx: str, sources: Sequence[pathlib.Path], out: pathlib.Path,
 
 def _host_identity(cxx: str) -> bytes:
     """The compiler's version and what it makes of ``-march=native`` on
-    this CPU (the target and every instruction set it enables)."""
-    run = lambda *a: subprocess.run([cxx, *a], capture_output=True, text=True,  # noqa: E731
-                                    timeout=60).stdout
-    return (run("--version") + run("-march=native", "-Q", "--help=target")).encode()
+    this CPU: the driver's commands under ``-###`` (GCC's and Clang's alike
+    name the target and every instruction set it enables)."""
+    version = subprocess.run([cxx, "--version"], capture_output=True, text=True, timeout=60)
+    target = subprocess.run([cxx, "-march=native", "-###", "-E", "-x", "c++", os.devnull],
+                            capture_output=True, text=True, timeout=60)
+    return (version.stdout + target.stderr).encode()
 
 
 def host_library_path(name: str, sources: Sequence[pathlib.Path], cxx: str,

@@ -18,6 +18,7 @@ from __future__ import annotations
 import ctypes
 import logging
 import pathlib
+import subprocess
 import threading
 from typing import NamedTuple, Optional, Tuple
 
@@ -96,7 +97,7 @@ def load_library() -> Optional[ctypes.CDLL]:
         path = kbuild.build_host(LIB_NAME, SOURCES)
         lib = ctypes.CDLL(str(path))
         _bind(lib)
-    except (OSError, RuntimeError, AttributeError) as e:
+    except (OSError, RuntimeError, AttributeError, subprocess.SubprocessError) as e:
         _lib_error = str(e)
         log.warning("native library unavailable; the Python BVH and OBJ fallbacks are in "
                     "use and --backend cpu cannot render: %s", e)

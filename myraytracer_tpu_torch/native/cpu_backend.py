@@ -122,7 +122,9 @@ def _ray_cost(mesh_points, sph_points, n_tris: int, n_sph: int) -> float:
     camera ray, its shading): a mixed world pays both kinds' costs less
     that shared part, taken as the cheaper of the two one-primitive
     worlds. The cost is continuous in each count, and a world of one mesh
-    and one ground sphere costs about what the mesh alone does."""
+    and one ground sphere costs about what the mesh alone does. This rule
+    for mixed worlds is a guess: it has been held to a measurement on one
+    world only, the 81,920-triangle OBJ mesh on the ground sphere."""
     terms = []
     if n_tris:
         terms.append(1.0 / _rate(mesh_points, n_tris))

@@ -73,11 +73,4 @@ def make_session(world: api.World, config: RenderConfig) -> RenderSession:
         if verdict is not None:
             log.info("%s", verdict)
     cfg = config.replace(backend=backend)
-    session = RenderSession(world, cfg, renderer_factory=renderer_factory(backend, world, cfg))
-    if backend == "cpu":
-        from myraytracer_tpu_torch.native import cpu_backend
-
-        # The CLI holds the first steady-state frame to it
-        # (cli._check_routing_prediction).
-        session.routing_prediction = cpu_backend.route_prediction(world, cfg)[0]
-    return session
+    return RenderSession(world, cfg, renderer_factory=renderer_factory(backend, world, cfg))

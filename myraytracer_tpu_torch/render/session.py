@@ -176,6 +176,14 @@ class RenderSession:
             resolved = resolve_device_backend(config.backend)
         self.backend_resolved = resolved
         self.device = torch.device("cuda" if resolved == "cuda" else "cpu")
+        # The routing model's CPU rate for this world, which the CLI holds
+        # the first steady-state frame to (cli._check_routing_prediction).
+        self.routing_prediction = None
+        if resolved == "cpu":
+            from myraytracer_tpu_torch.native import cpu_backend
+
+            pred = cpu_backend.route_prediction(world, config)
+            self.routing_prediction = pred[0] if pred else None
         self.scene = compile_scene(
             world, spatial_sort=wants_spatial_sort(world), device=self.device,
             triangle_bvh=wants_triangle_bvh(world, resolved),

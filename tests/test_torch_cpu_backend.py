@@ -28,6 +28,7 @@ from myraytracer_tpu_torch.native import cpu_backend
 from myraytracer_tpu_torch.render import dispatch
 from myraytracer_tpu_torch.render.camera import orbit_camera
 from myraytracer_tpu_torch.render.dispatch import make_session
+from myraytracer_tpu_torch.render.session import RenderSession
 from myraytracer_tpu_torch.scene import api, presets
 
 from test_torch_native import _mixed, ico_obj
@@ -155,6 +156,9 @@ def test_cpu_session_carries_its_prediction_and_provenance(tmp_path):
     world = presets.get_scene("spheres:6")
     session = make_session(world, RenderConfig(**CFG))
     assert session.routing_prediction == cpu_backend.route_prediction(world, session.config)[0]
+    # A session built without dispatch carries the same prediction.
+    assert RenderSession(world, RenderConfig(**CFG)).routing_prediction == session.routing_prediction
+    assert RenderSession(world, RenderConfig(**{**CFG, "backend": "torch"})).routing_prediction is None
     session.step()
     session.save_checkpoint(tmp_path / "c.npz")
     again = make_session(world, RenderConfig(**CFG))

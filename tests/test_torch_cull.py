@@ -66,6 +66,27 @@ def _plain(world, scene, w, h, spp, depth, cfg, key=0, sample_start=0):
     )
 
 
+def test_plain_sample_batch_is_bitwise_one_sample_at_a_time():
+    """The plain gated sweep traced a pixel's samples at once gives the
+    bits of one sample at a time, over two frames in one call, on a mesh
+    over a ground sphere (the check of the OBJ world at the main path's
+    shapes batches them)."""
+    mesh = presets.mesh_scene(subdivisions=1)
+    world = api.World(spheres=[api.Sphere((0.0, -1000.0, 0.0), 1000.0,
+                                          api.Lambertian((0.6, 0.6, 0.6)))],
+                      meshes=mesh.meshes, camera=mesh.camera)
+    scene = compile_scene(world, spatial_sort=True)
+    w, h, spp, depth = 24, 40, 4, 8
+    cam = torch.from_numpy(pack_camera(world.camera, w, h))
+    args = (scene, cam, trng.key_from_seed(3), w, h, 17, 3, 5, spp, depth, 1e-3, 1e4,
+            world.ambient)
+    tables = ktrace.gate_tables(scene, TWO_LEVEL)
+    one = ktrace.trace_spheres_plain(*args, frames=2, tables=tables)
+    batched = ktrace.trace_spheres_plain(*args, frames=2, tables=tables, sample_batch=spp)
+    assert one[0].shape == (2, 3, 3, w)
+    assert torch.equal(one[0], batched[0]) and torch.equal(one[1], batched[1])
+
+
 @pytest.mark.parametrize("cfg", [{}, dict(SUPER=2, SUPER_MIN=2)], ids=["default", "two-level"])
 @pytest.mark.parametrize("name", ["final", "spheres:4", "spheres:20", "mesh", "mesh:1"])
 def test_gate_tables_bitwise_equal_to_jax(name, cfg):

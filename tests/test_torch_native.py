@@ -10,6 +10,7 @@ the fingerprint) and the reference pool layout.
 """
 
 import logging
+import subprocess
 
 import numpy as np
 import pytest
@@ -120,6 +121,27 @@ def test_failed_build_is_not_silent(monkeypatch, caplog):
     got = native.build_bvh(mn, mx)
     want = jnative.build_bvh(mn, mx, force_python=True)
     assert np.array_equal(got.order, want.order)
+
+
+def test_compiler_timeout_is_not_silent(tmp_path, monkeypatch, caplog):
+    """A compiler that hangs while the build is keyed is logged and
+    reported unavailable, as a failed build is, and the OBJ loader falls
+    back to the Python parser."""
+    def hung(cmd, **kwargs):
+        raise subprocess.TimeoutExpired(cmd, kwargs.get("timeout"))
+
+    monkeypatch.setattr(kbuild.subprocess, "run", hung)
+    for name in ("_lib", "_lib_path", "_lib_error"):
+        monkeypatch.setattr(native, name, None)
+    with caplog.at_level(logging.WARNING, logger="myraytracer_tpu_torch.native"):
+        assert not native.native_available()
+    assert "timed out" in native.native_error()
+    assert any("timed out" in r.getMessage() for r in caplog.records)
+    p = tmp_path / "forms.obj"
+    p.write_text(OBJ_FILES["forms"])
+    v, t = native.load_obj(p)
+    jv, jt = jnative.load_obj(p, force_python=True)
+    assert np.array_equal(v, jv) and np.array_equal(t, jt)
 
 
 def _mixed(pkg_presets, pkg_api):
