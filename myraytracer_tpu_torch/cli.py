@@ -12,8 +12,10 @@ estimator's modes (``--nee``, ``--rr N``, ``--qmc``), the output denoiser
 previews (``--preview-every``), the live viewer (``--serve PORT``, with
 camera orbits under ``--interactive``: the analog of the reference's
 browser runner), a profiler trace (``--profile``), a NaN check a step
-(``--debug-nans``), and a log line per sync (frame, accumulated spp, ms a
-frame, Mrays/s = traced ray segments per second, shadow rays included).
+(``--debug-nans``), sharding over a device mesh (``--shard
+{tiles,samples,hybrid}``) and over processes (``--multihost``), and a log
+line per sync (frame, accumulated spp, ms a frame, Mrays/s = traced ray
+segments per second, shadow rays included).
 
 Every scene renders on both backends: ``cuda`` (the default ``auto``) runs
 the CUDA kernels on the GPU and never falls back to the CPU; ``torch`` runs
@@ -22,8 +24,15 @@ the host's cores (sphere, mesh and mixed worlds, the default estimator);
 ``auto`` logs the routing model's verdict on it but stays on the card. An
 OBJ file renders with ``--obj FILE`` (``--ground``: on the giant ground
 sphere instead of the ground quad). The denoiser and the feature pass run
-on the session's device. The JAX package's sharding (``--shard``,
-``--multihost``) is not in the port yet.
+on the session's device.
+
+``--shard`` renders on a mesh of every local card (``cuda``) or the CPU
+(``torch``), one shard an entry (parallel/sharding.py); ``--multihost
+HOST:PORT,N,RANK`` joins N processes through ``torch.distributed`` before
+any device use, each rank on its own card (or sharing one), and the mesh
+spans them. Every rank renders its own shards and joins the collectives
+(the segment count a sync, the framebuffer's gather at each image sink and
+checkpoint); only rank 0 writes files.
 """
 
 from __future__ import annotations
@@ -135,6 +144,19 @@ def build_parser() -> argparse.ArgumentParser:
         "routing model's verdict on cpu logged. Left at auto, the "
         "MYRT_BACKEND env var overrides (the analog of the reference's "
         "WGPU_BACKEND override, lib.rs:322)",
+    )
+    p.add_argument(
+        "--shard", choices=["none", "tiles", "samples", "hybrid"], default="none",
+        help="multi-device sharding mode (image tiles or sample-parallel) over "
+        "every local card (cuda) or the CPU (torch)",
+    )
+    p.add_argument(
+        "--multihost", nargs="?", const="", default=None,
+        metavar="HOST:PORT[,NPROCS,PID]",
+        help="initialize torch.distributed for a process-spanning mesh (one "
+        "process per card, or several sharing one). With no value, the "
+        "address, world size and rank come from the torchrun environment. "
+        "Combine with --shard; only process 0 writes output.",
     )
     p.add_argument(
         "--gamma", type=parse_gamma, default=2.0, metavar="G|srgb|aces",
@@ -325,12 +347,13 @@ def _write_aovs(aov_arg, out_path, config, world, width, height, device,
 
 
 def _make_viewer(args, world):
-    """The live viewer of --serve, or None; --interactive needs one and a
-    camera that moves."""
-    if args.interactive and (args.serve is None or world.camera.reference_mode):
+    """The live viewer of --serve, or None; --interactive needs one, a
+    camera that moves and no sharding."""
+    if args.interactive and (args.serve is None or world.camera.reference_mode
+                             or args.shard != "none"):
         raise SystemExit(
-            "--interactive needs --serve and a general-mode (positionable) "
-            "camera scene"
+            "--interactive needs --serve, a general-mode (positionable) "
+            "camera scene, and --shard none"
         )
     if args.serve is None:
         return None
@@ -346,6 +369,26 @@ def _denoise_stats(denoise, spp):
         denoise_auto=bool(denoise and denoise.auto),
         denoise_noise=denoise.last_noise if denoise and denoise.auto else None,
     )
+
+
+def _is_rank0() -> bool:
+    """Whether this process writes files: the only one, or rank 0 of a
+    --multihost run."""
+    from myraytracer_tpu_torch.parallel.sharding import process
+
+    return process() is None or process().rank == 0
+
+
+def _fetch(session):
+    """The session's whole framebuffer; under --multihost every rank joins
+    the gather, and its ms is logged."""
+    t0 = time.perf_counter()
+    fb = session.fetch_framebuffer()
+    proc = session.mesh.proc if session.mesh is not None else None
+    if proc is not None:
+        log.info("framebuffer %dx%d fetched over %d ranks (%s) in %.2f ms", session.width,
+                 session.height, proc.world, proc.backend, (time.perf_counter() - t0) * 1e3)
+    return fb
 
 
 def routing_verdict(pred: float, mrays: float):
@@ -421,6 +464,7 @@ def main(argv=None) -> int:
             nee=args.nee,
             qmc=args.qmc,
             rr=max(0, args.rr),
+            shard=args.shard,
         )
         base.update(over)
         return RenderConfig(**base)
@@ -447,9 +491,28 @@ def main(argv=None) -> int:
 
     if args.aov:
         _parse_aov_names(args.aov)  # a bad list fails before the render, not after
-    if args.adaptive is not None and args.frames == 0:
-        raise SystemExit("--adaptive does not compose with --frames 0 (needs a "
-                         "bounded budget)")
+    if args.adaptive is not None:
+        for bad, name in (
+            (args.shard not in ("none", "tiles"), f"--shard {args.shard} (tile stripes only)"),
+            (args.multihost is not None and args.shard != "tiles",
+             "--multihost without --shard tiles"),
+            (args.multihost is not None and args.serve is not None,
+             "--serve under --multihost (the viewer is single-process)"),
+            (args.frames == 0, "--frames 0 (needs a bounded budget)"),
+        ):
+            if bad:
+                raise SystemExit(f"--adaptive does not compose with {name}")
+    if args.serve is not None and args.multihost is not None:
+        # The viewer syncs and rebuilds sessions on one process only; the
+        # others would go on issuing collectives and hang.
+        raise SystemExit("--serve is single-process; run the viewer without --multihost")
+    if args.multihost is not None:
+        # Before any device use: the rank takes its card, and the default
+        # mesh spans every rank.
+        from myraytracer_tpu_torch.parallel.sharding import initialize_multihost
+
+        initialize_multihost(args.multihost,
+                             device_type="cuda" if backend in ("auto", "cuda") else "cpu")
     from myraytracer_tpu_torch.utils import profiling
 
     # The switch is the process's (as jax_debug_nans is); a run restores it.
@@ -460,8 +523,14 @@ def main(argv=None) -> int:
     try:
         config = make_config()
         if args.adaptive is not None:
-            return _run_adaptive(args, config, build_world(args.scene, config), trace_cm)
-        return _run_uniform(args, config, make_config, build_world, trace_cm)
+            rc = _run_adaptive(args, config, build_world(args.scene, config), trace_cm)
+        else:
+            rc = _run_uniform(args, config, make_config, build_world, trace_cm)
+        if args.multihost is not None:
+            from myraytracer_tpu_torch.parallel.sharding import shutdown_multihost
+
+            shutdown_multihost()
+        return rc
     finally:
         profiling.enable_debug_nans(nans_before)
 
@@ -478,17 +547,18 @@ def _run_uniform(args, config, make_config, build_world, trace_cm) -> int:
         session = make_session(world, config)
         log.info(
             "rendering scene=%s %dx%d spp/frame=%d depth=%d frames=%s "
-            "frame_batch=%d backend=%s nee=%s rr=%d qmc=%s",
+            "frame_batch=%d backend=%s shard=%s x%d nee=%s rr=%d qmc=%s",
             f"obj:{args.obj}{' --ground' if args.ground else ''}" if args.obj else scene_name,
             session.width, session.height, config.samples_per_frame,
             config.ray_depth, args.frames if args.frames else "unbounded",
-            session.frame_batch, session.backend_resolved, config.nee, config.rr,
-            config.qmc,
+            session.frame_batch, session.backend_resolved, config.shard, session.ndev,
+            config.nee, config.rr, config.qmc,
         )
         return world, session
 
     scene_name = args.scene
     world, session = build_session(scene_name, config)
+    proc0 = _is_rank0()
     denoise_arg = args.denoise
     denoise = _make_denoiser(denoise_arg, config, world, session.width, session.height,
                              session.device)
@@ -652,10 +722,13 @@ def _run_uniform(args, config, make_config, build_world, trace_cm) -> int:
                         and session.frame_count // args.preview_every > previews_written:
                     # Threshold crossing, not divisibility: frame_count moves
                     # in frame_batch jumps that rarely land on multiples.
+                    # Every rank joins the gather; rank 0 writes.
                     previews_written = session.frame_count // args.preview_every
-                    write_image(args.out, post(session.framebuffer), gamma=args.gamma,
-                                exposure=args.exposure)
-                    log.info("preview → %s", args.out)
+                    preview = _fetch(session)
+                    if proc0:
+                        write_image(args.out, post(preview), gamma=args.gamma,
+                                    exposure=args.exposure)
+                        log.info("preview → %s", args.out)
         except KeyboardInterrupt:
             # The run-forever mode's exit (and any long run's): the
             # checkpoint and the final image below, with what accumulated.
@@ -666,9 +739,14 @@ def _run_uniform(args, config, make_config, build_world, trace_cm) -> int:
             )
 
     if args.checkpoint:
-        session.save_checkpoint(args.checkpoint)
-        log.info("checkpoint saved to %s", args.checkpoint)
-    final = post(session.framebuffer)
+        # Every rank joins the state's gather; rank 0 writes the file.
+        session.save_checkpoint(args.checkpoint if proc0 else None)
+        if proc0:
+            log.info("checkpoint saved to %s", args.checkpoint)
+    fb = _fetch(session)
+    if not proc0:
+        return 0
+    final = post(fb)
     if denoise is not None:
         log.info("denoised: %d iterations%s", denoise.effective_iterations(
             session.accumulated_spp), " (auto)" if denoise.auto else "")
@@ -706,6 +784,7 @@ def _run_adaptive(args, config: RenderConfig, world, trace_cm) -> int:
             config = config.replace(frame_batch=int(saved))
 
     session = AdaptiveSession(world, config, n_sel=max(0, args.adaptive))
+    proc0 = _is_rank0()
     denoise = _make_denoiser(args.denoise, config, world, session.width, session.height,
                              session.device)
 
@@ -738,15 +817,21 @@ def _run_adaptive(args, config: RenderConfig, world, trace_cm) -> int:
     round_cost = session.round_cost()
     log.info(
         "adaptive render %dx%d spp/round=%d depth=%d budget=%d frames "
-        "(%d blocks of %dx%d, %d per round, windows=%d%s) backend=%s",
+        "(%d blocks of %dx%d, %d per round, windows=%d%s) backend=%s "
+        "shard=%s x%d",
         session.width, session.height, config.samples_per_frame,
         config.ray_depth, args.frames, session.n_blocks, session.block_w,
         session.block_h, session.n_sel, session.windows,
         "" if config.frame_batch > 0 else " auto", session.backend_resolved,
+        config.shard, session.ndev,
     )
     # Rounds queue on the device; the host syncs about once a second, or on
-    # the viewer's cadence.
+    # the viewer's cadence. Under --multihost a sync is a collective, which
+    # a wall-clock cadence would issue at different rounds on each rank: the
+    # ranks sync only at the end.
     sync_interval = SERVE_SYNC_S if viewer is not None else 1.0
+    if args.multihost is not None:
+        sync_interval = float("inf")
     with trace_cm:
         t_start = t_sync = time.perf_counter()
         segs_start = segs_sync = session.segments_traced
@@ -817,9 +902,10 @@ def _run_adaptive(args, config: RenderConfig, world, trace_cm) -> int:
                 "interrupted at round %d (%d samples) — writing final image",
                 session.rounds, session.samples_spent,
             )
-    final = post(session.framebuffer)
-    segs = session.segments_traced - segs_start
+    segs = session.segments_traced - segs_start  # waits for the queued rounds
     dt = time.perf_counter() - t_start
+    fb = _fetch(session)  # every rank joins the gather
+    final = post(fb) if proc0 else None
     smap = session.spp_map
     log.info(
         "adaptive done: rounds=%d samples=%d (%.1f%% of budget) "
@@ -831,8 +917,12 @@ def _run_adaptive(args, config: RenderConfig, world, trace_cm) -> int:
     if viewer is not None:
         viewer.update(final, session.rounds, avg_spp(), **_denoise_stats(denoise, avg_spp()))
     if args.checkpoint:
-        session.save_checkpoint(args.checkpoint)
-        log.info("adaptive checkpoint saved to %s", args.checkpoint)
+        # Every rank joins the state's gather; rank 0 writes the file.
+        session.save_checkpoint(args.checkpoint if proc0 else None)
+        if proc0:
+            log.info("adaptive checkpoint saved to %s", args.checkpoint)
+    if not proc0:
+        return 0
     if denoise is not None:
         log.info("denoised: %d iterations%s", denoise.effective_iterations(avg_spp()),
                  " (auto)" if denoise.auto else "")

@@ -58,7 +58,7 @@ class RenderConfig:
     gamma: Union[float, str] = 2.0
     sample_batch: int = 0  # samples traced per vectorized pass; 0 = auto
     backend: str = "auto"  # "cuda" | "torch" | "cpu" | "auto" (= cuda)
-    shard: str = "none"  # "none" | "tiles" | "samples"
+    shard: str = "none"  # "none" | "tiles" | "samples" | "hybrid" (parallel/sharding.py)
     # Progressive frames rendered per device call (0 = auto). K > 1
     # batches K frames into one kernel launch with per-frame outputs,
     # bitwise identical to K separate frames.

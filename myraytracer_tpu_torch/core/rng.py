@@ -27,6 +27,28 @@ from myraytracer_tpu_torch.core.noise import _mul32, lowbias32
 from myraytracer_tpu_torch.core.vec import V3
 
 M32 = 0xFFFFFFFF
+
+
+def _init_cpu_math() -> None:
+    """Call each elementwise math routine of the plain version once, on one
+    element, on the importing thread.
+
+    The CPU's vector math routines set themselves up at their first call.
+    When that first call is one parallel op's, made from several threads at
+    once, one thread's chunk of it can come out a few ulps off: on a busy
+    CPU a process's first render now and then differed from every later
+    one in one op's chunk of 2048 lanes. One call each, before any parallel
+    op, removes the race.
+    """
+    one = torch.ones(1)
+    for fn in (torch.sin, torch.cos, torch.log2, torch.exp2, torch.sqrt, torch.rsqrt,
+               torch.reciprocal, torch.exp, torch.acos):
+        fn(one)
+    torch.atan2(one, one)
+
+
+_init_cpu_math()
+
 TAU = 6.283185307179586
 
 # Draw-slot layout inside one (pixel, sample) stream (core/rng.py of the JAX
@@ -126,9 +148,24 @@ def unit_sphere_from_uniforms(u1: torch.Tensor, u2: torch.Tensor) -> V3:
     return V3(r * torch.cos(phi), r * torch.sin(phi), z)
 
 
+def _exp2(y: torch.Tensor) -> torch.Tensor:
+    """``torch.exp2``, the same for a lane wherever it lies in the tensor.
+
+    On the CPU, exp2 of a contiguous tensor runs the vectorized routine on
+    whole vectors and the scalar one on the rest, and the two differ in
+    the last bit for some inputs: a pixel's value would depend on how many
+    pixels share its call (a stripe of the image or all of it). A strided
+    operand takes the scalar routine for every lane."""
+    if y.device.type != "cpu":
+        return torch.exp2(y)
+    buf = torch.empty((y.numel(), 2), dtype=y.dtype)
+    buf[:, 0] = y.reshape(-1)
+    return torch.exp2(buf[:, 0]).reshape(y.shape)
+
+
 def _cbrt01(u: torch.Tensor) -> torch.Tensor:
     """Cube root on [0,1] via exp2/log2 (the JAX package's form)."""
-    r = torch.exp2(torch.log2(torch.clamp_min(u, 1e-38)) * (1.0 / 3.0))
+    r = _exp2(torch.log2(torch.clamp_min(u, 1e-38)) * (1.0 / 3.0))
     return torch.where(u <= 0.0, torch.zeros_like(r), r)
 
 

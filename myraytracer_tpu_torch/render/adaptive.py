@@ -19,8 +19,17 @@ the fold and the scores reproduce the arithmetic XLA's CPU backend
 compiles (its fused multiply-adds, its reduction order), and the selection
 breaks ties toward the lowest block id as ``lax.top_k`` does.
 
-Not ported yet: the ``shard="tiles"`` branch (per-device block stripes,
-M12).
+Tile sharding (``config.shard = "tiles"``, a mesh of ``ndev > 1``
+entries): entry d owns the contiguous block-id stripe ``[d*local_nb,
+(d+1)*local_nb)`` of the grid, keeps that stripe's statistics on its device
+(``local_nb + 1`` rows, the spare one for sentinels), and picks its own top
+``n_sel_local`` blocks a round: one adaptive launch a stripe a round, with
+no communication between stripes. Ids past the grid in the last stripe are
+dead and scheduled as the sentinel. A block renders the same wherever it is
+owned (the sample stream is per pixel), so a sharded schedule is bitwise
+the unsharded one. Under several processes each rank holds only its own
+stripes; the framebuffer, the spp map, the segments and checkpoints gather
+them (``parallel.sharding.fetch_array``), collectives every rank joins.
 """
 
 from __future__ import annotations
@@ -33,6 +42,7 @@ import torch
 
 from myraytracer_tpu_torch.config import RenderConfig
 from myraytracer_tpu_torch.core import rng as crng
+from myraytracer_tpu_torch.parallel import sharding
 from myraytracer_tpu_torch.render import integrator
 from myraytracer_tpu_torch.render.camera import pack_camera
 from myraytracer_tpu_torch.render.dispatch import resolve_backend
@@ -241,14 +251,16 @@ def state_from_numpy(arrays, device="cpu"):
 
 
 class AdaptiveSession:
-    """Adaptive-budget render session on one device.
+    """Adaptive-budget render session.
 
     A step renders ``n_sel`` chosen blocks of ``samples_per_frame`` samples
     in each of ``windows`` windows; ``run_budget(total)`` spends a total
     per-image sample budget (in units of uniform frames) and returns the
     framebuffer. Sessions checkpoint and resume exactly. Backends ``auto``
     and ``cuda`` run the CUDA adaptive kernel (and raise without a GPU),
-    ``torch`` the plain oracle on the CPU; ``cpu`` raises.
+    ``torch`` the plain oracle on the CPU; ``cpu`` raises. ``shard="tiles"``
+    splits the block grid into stripes over ``mesh`` (default
+    ``sharding.default_mesh``; module docstring).
     """
 
     def __init__(
@@ -256,11 +268,14 @@ class AdaptiveSession:
         world: api.World,
         config: RenderConfig = RenderConfig(),
         n_sel: int = 0,
+        mesh=None,
     ):
-        if config.shard != "none":
-            raise NotImplementedError(
-                f"adaptive sampling with shard={config.shard!r}: the port has "
-                "no sharding yet"
+        if config.shard not in ("none", "tiles"):
+            raise ValueError(
+                "adaptive sampling shards over image tiles only: the "
+                "sample/hybrid modes would split each block's sample "
+                "window across devices, which the per-block cursors do "
+                "not describe; use shard='none' or shard='tiles'"
             )
         self.world = world
         self.config = config
@@ -281,9 +296,24 @@ class AdaptiveSession:
             self.width, self.height, self.block_w, self.block_h
         )
         self.sentinel = self.n_blocks  # one-past-grid block id: renders nothing
+        self.mesh = None
+        if config.shard == "tiles":
+            self.mesh = mesh if mesh is not None else sharding.default_mesh(
+                device_type=self.device.type)
+        self.ndev = self.mesh.shape["tiles"] if self.mesh is not None else 1
         if n_sel <= 0:
             n_sel = max(1, self.n_blocks // 4)
-        self.n_sel = min(n_sel, self.n_blocks)
+        n_sel = min(n_sel, self.n_blocks)
+        # Stripe d: block ids [d*local_nb, (d+1)*local_nb) within the grid,
+        # n_sel_local of them a round; sel_real counts the real (not dead)
+        # blocks an auto round selects.
+        self.local_nb = -(-self.n_blocks // self.ndev)
+        self.n_sel_local = min(-(-n_sel // self.ndev), self.local_nb)
+        self.n_sel = self.n_sel_local * self.ndev
+        self.sel_real = sum(
+            min(self.n_sel_local, max(0, min(self.local_nb, self.n_blocks - d * self.local_nb)))
+            for d in range(self.ndev)
+        )
 
         self.scene = compile_scene(
             world, spatial_sort=wants_spatial_sort(world), device=self.device,
@@ -302,9 +332,9 @@ class AdaptiveSession:
             )
         else:
             renderer_factory = make_adaptive_oracle
-        self._render = renderer_factory(
+        self._make_render = lambda: renderer_factory(
             cam=world.camera, width=self.width, height=self.height,
-            n_sel=self.n_sel, max_samples=config.samples_per_frame,
+            n_sel=self.n_sel_local, max_samples=config.samples_per_frame,
             ray_depth=config.ray_depth, windows=self.windows,
             t_min=config.t_min, t_max=config.t_max,
             material_set=world.material_set or None, sky=world.ambient,
@@ -312,17 +342,29 @@ class AdaptiveSession:
             texture_set=world.texture_set or None, qmc=config.qmc,
             rr=config.rr,
         )
+        self._render = self._make_render()
 
-        nb1 = self.n_blocks + 1  # spare row absorbs sentinel scatters
+        nb1 = self.local_nb + 1  # spare row absorbs sentinel scatters
         bshape = (nb1, self.block_h, self.block_w)
-        self._state = state_from_numpy((
+        zeros = (
             np.zeros(bshape + (3,), np.float32),  # fbB: pixel mean
             np.zeros(bshape, np.float32),  # s1: sum of round means
             np.zeros(bshape, np.float32),  # s2: sum of sq round means
             np.zeros((nb1,), np.int32),  # n_b: per-block samples
             np.zeros((nb1,), np.int32),  # r_b: per-block rounds
             np.zeros((nb1,), np.int64),  # cursor: sample start
-        ), self.device)
+        )
+        if self.ndev == 1:
+            self._state = state_from_numpy(zeros, self.device)
+        else:
+            # One state a stripe, on its entry's device; None where another
+            # process owns the stripe.
+            self._state = [
+                state_from_numpy(zeros, self.mesh.device_of(d)) if d in self.mesh.local
+                else None for d in range(self.ndev)
+            ]
+            self._renders = {}  # one renderer a device, each with its tables
+            self._place = sharding.Placement()
         self.rounds = 0  # sub-rounds since the last set_camera
         # Sub-rounds since construction: the per-block cursors keep
         # advancing across set_camera, so the headroom guard counts these
@@ -336,32 +378,69 @@ class AdaptiveSession:
 
     # -- rounds ---------------------------------------------------------------
 
-    def fold_round(self, lidx: torch.Tensor, render_ids: torch.Tensor) -> None:
+    def _fold(self, state, render, scene, lidx, render_ids):
         """Render ``render_ids`` (sentinel allowed) and fold the F window
-        sums into the statistics rows ``lidx`` in sample order: bitwise
-        what F separate rounds produce."""
-        samp0 = self._state[5][lidx]  # a sentinel reads the spare row's
-        sums, segs = self._render(self.scene, self.key, render_ids, samp0)
+        sums into the statistics rows ``lidx`` of ``state`` in sample
+        order: bitwise what F separate rounds produce."""
+        samp0 = state[5][lidx]  # a sentinel reads the spare row's
+        sums, segs = render(scene, self.key, render_ids, samp0)
         if self.windows == 1:
             sums = sums[None]
-        state = self._state
         for sums_w in sums:
             state = _update_stats(*state, lidx, sums_w, self.config.samples_per_frame)
         if profiling.debug_nans():
             profiling.check_finite(state[0], f"adaptive round {self.rounds + self.windows}")
-        self._state = state
-        self._segs_pending.append(segs)
+        self._segs_pending.append(segs.to(self.device))
+        return state
+
+    def fold_round(self, lidx: torch.Tensor, render_ids: torch.Tensor) -> None:
+        """Render ``render_ids`` and fold them into rows ``lidx`` (one
+        device)."""
+        self._state = self._fold(self._state, self._render, self.scene, lidx, render_ids)
+
+    def _fold_stripe(self, d: int, lidx: torch.Tensor, render_ids: torch.Tensor) -> None:
+        """Stripe ``d``'s part of a round, on its entry's device: one
+        launch."""
+        dev = self.mesh.device_of(d)
+        with sharding.on_device(dev):
+            if dev not in self._renders:
+                self._renders[dev] = self._make_render()
+            self._state[d] = self._fold(self._state[d], self._renders[dev],
+                                        self._place(self.scene, dev), lidx.to(dev),
+                                        render_ids.to(dev))
 
     def round_ids(self, ids: torch.Tensor) -> None:
-        """One call = F sub-rounds of the given block ids."""
-        ids = ids.to(device=self.device, dtype=torch.int64)
-        self.fold_round(torch.clamp(ids, max=self.n_blocks), ids)
+        """One call = F sub-rounds of the given block ids: ``[n_sel]``, or
+        ``[ndev, n_sel_local]`` global ids on a sharded session, where each
+        stripe renders the ids it owns and the sentinel for the rest."""
+        if self.ndev == 1:
+            ids = ids.to(device=self.device, dtype=torch.int64)
+            self.fold_round(torch.clamp(ids, max=self.n_blocks), ids)
+            return
+        ids = torch.as_tensor(ids, dtype=torch.int64).reshape(self.ndev, self.n_sel_local)
+        for d in self.mesh.local:
+            base = d * self.local_nb
+            gid = ids[d]
+            owned = (gid >= base) & (gid < min(base + self.local_nb, self.n_blocks))
+            self._fold_stripe(d, torch.where(owned, gid - base, self.local_nb),
+                              torch.where(owned, gid, self.n_blocks))
 
     def round_auto(self) -> None:
-        """One adaptive round: score, select the top n_sel, render, fold."""
-        _, s1, s2, _, r_b, _ = self._state
-        scores = _block_scores(s1, s2, r_b)[: self.n_blocks]
-        self.round_ids(select_blocks(scores, self.n_sel))
+        """One adaptive round: score, select the top n_sel (in each stripe,
+        its top n_sel_local), render, fold."""
+        if self.ndev == 1:
+            _, s1, s2, _, r_b, _ = self._state
+            scores = _block_scores(s1, s2, r_b)[: self.n_blocks]
+            self.round_ids(select_blocks(scores, self.n_sel))
+            return
+        for d in self.mesh.local:
+            _, s1, s2, _, r_b, _ = self._state[d]
+            scores = _block_scores(s1, s2, r_b)[: self.local_nb]
+            ids = d * self.local_nb + torch.arange(self.local_nb, device=scores.device)
+            alive = ids < self.n_blocks
+            top = select_blocks(torch.where(alive, scores, -torch.inf), self.n_sel_local)
+            self._fold_stripe(d, torch.where(alive[top], top, self.local_nb),
+                              torch.where(alive[top], ids[top], self.n_blocks))
 
     def set_camera(self, cam: api.Camera) -> None:
         """Move the runtime camera and restart the adaptive schedule: the
@@ -377,11 +456,16 @@ class AdaptiveSession:
             pack_camera(cam, self.width, self.height)
         ).to(self.device))
         self.camera = cam
-        fbB, s1, s2, n_b, r_b, cursor = self._state
-        self._state = (
-            torch.zeros_like(fbB), torch.zeros_like(s1), torch.zeros_like(s2),
-            torch.zeros_like(n_b), torch.zeros_like(r_b), cursor,
-        )
+
+        def restart(state):
+            if state is None:
+                return None
+            fbB, s1, s2, n_b, r_b, cursor = state
+            return (torch.zeros_like(fbB), torch.zeros_like(s1), torch.zeros_like(s2),
+                    torch.zeros_like(n_b), torch.zeros_like(r_b), cursor)
+
+        self._state = (restart(self._state) if self.ndev == 1
+                       else [restart(st) for st in self._state])
         self.rounds = 0
         self.samples_spent = 0
         self._bootstrapped = False
@@ -407,15 +491,25 @@ class AdaptiveSession:
 
     def bootstrap(self, covers: int = 2) -> None:
         """Render every block until it has >= ``covers`` statistics rounds
-        (variance needs r >= 2); one call contributes F windows."""
-        chunks = -(-self.n_blocks // self.n_sel)
+        (variance needs r >= 2); one call contributes F windows. Call c
+        renders chunk c of every stripe; ids past a stripe's real blocks
+        schedule the sentinel."""
+        chunks = -(-self.local_nb // self.n_sel_local)
         for _ in range(-(-covers // self.windows)):
             for c in range(chunks):
-                ids = c * self.n_sel + np.arange(self.n_sel, dtype=np.int64)
-                ids[ids >= self.n_blocks] = self.sentinel
+                ids = np.empty((self.ndev, self.n_sel_local), np.int64)
+                for d in range(self.ndev):
+                    stripe_end = min((d + 1) * self.local_nb, self.n_blocks)
+                    cand = (d * self.local_nb + c * self.n_sel_local
+                            + np.arange(self.n_sel_local, dtype=np.int64))
+                    cand[cand >= stripe_end] = self.sentinel
+                    ids[d] = cand
+                n_real = int((ids != self.sentinel).sum())
+                if n_real == 0:
+                    continue
                 self._check_cursor_headroom()
-                self.round_ids(torch.from_numpy(ids))
-                self._count_call(int((ids != self.sentinel).sum()))
+                self.round_ids(torch.from_numpy(ids if self.ndev > 1 else ids[0]))
+                self._count_call(n_real)
         self._bootstrapped = True
 
     def step(self) -> None:
@@ -425,11 +519,11 @@ class AdaptiveSession:
             return
         self._check_cursor_headroom()
         self.round_auto()
-        self._count_call(self.n_sel)
+        self._count_call(self.sel_real)
 
     def round_cost(self) -> int:
         """Samples (per-pixel samples x pixels) one auto round spends."""
-        return (self.n_sel * self.block_h * self.block_w
+        return (self.sel_real * self.block_h * self.block_w
                 * self.config.samples_per_frame * self.windows)
 
     def run_budget(self, uniform_frames: int) -> torch.Tensor:
@@ -467,15 +561,41 @@ class AdaptiveSession:
             "block_w": self.block_w,
             "block_h": self.block_h,
             "shard": self.config.shard,
-            "ndev": 1,
+            "ndev": self.ndev,
         }
+
+    def _stacked(self, i: int, fetch: bool = True) -> torch.Tensor:
+        """State array ``i`` as the JAX session holds it: ``[ndev, local_nb
+        + 1, ...]`` for a sharded session, on the session's device.
+        ``fetch`` gathers other processes' stripes (a collective); without
+        it their rows are zeros."""
+        if self.ndev == 1:
+            return self._state[i]
+        mine = next(st for st in self._state if st is not None)[i]
+        local = torch.stack([
+            st[i].to(self.device) if st is not None
+            else torch.zeros(mine.shape, dtype=mine.dtype, device=self.device)
+            for st in self._state])
+        if not fetch or self.mesh.proc is None:
+            return local
+        rows = sharding.Rows(self.mesh, tuple((d, d + 1) for d in range(self.ndev)))
+        return torch.from_numpy(sharding.fetch_array(local, rows)).to(self.device)
+
+    def _unstripe(self, a: torch.Tensor) -> torch.Tensor:
+        """``[ndev, local_nb + 1, ...]`` → ``[n_blocks, ...]`` in block-id
+        order (each stripe's spare row dropped)."""
+        if self.ndev == 1:
+            return a[: self.n_blocks]
+        return a[:, : self.local_nb].reshape((-1,) + tuple(a.shape[2:]))[: self.n_blocks]
 
     def save_checkpoint(self, path) -> None:
         """Save the adaptive state (per-block statistics and cursors) to an
-        npz in the JAX package's format (version 3, the same meta keys)."""
-        arrays = {
-            f"state{i}": a.cpu().numpy() for i, a in enumerate(self._state)
-        }
+        npz in the JAX package's format (version 3, the same meta keys).
+
+        ``path=None`` joins the state's gather without writing a file: under
+        several processes the stripes are gathered with collectives every
+        rank must join, while one rank owns the file."""
+        arrays = {f"state{i}": self._stacked(i).cpu().numpy() for i in range(6)}
         arrays["state5"] = arrays["state5"].astype(np.uint32)
         arrays.update(
             rounds=np.int64(self.rounds),
@@ -488,7 +608,8 @@ class AdaptiveSession:
         if self.scene.cam is not None:
             # The runtime camera: the accumulated state describes its view.
             arrays["camera"] = self.scene.cam.cpu().numpy()
-        np.savez(pathlib.Path(path), **arrays)
+        if path is not None:
+            np.savez(pathlib.Path(path), **arrays)
 
     def load_checkpoint(self, path) -> None:
         with np.load(pathlib.Path(path), allow_pickle=False) as data:
@@ -506,9 +627,14 @@ class AdaptiveSession:
             for k, v in self._meta().items():
                 if k not in ("version", "adaptive") and meta.get(k, defaults.get(k)) != v:
                     raise ValueError(f"checkpoint {k}={meta.get(k)!r} != session {v!r}")
-            self._state = state_from_numpy(
-                [data[f"state{i}"] for i in range(6)], self.device
-            )
+            arrays = [data[f"state{i}"] for i in range(6)]
+            if self.ndev == 1:
+                self._state = state_from_numpy(arrays, self.device)
+            else:
+                self._state = [
+                    state_from_numpy([a[d] for a in arrays], self.mesh.device_of(d))
+                    if d in self.mesh.local else None for d in range(self.ndev)
+                ]
             self.rounds = int(data["rounds"])
             self.sub_rounds = int(data["sub_rounds"]) if "sub_rounds" in data else self.rounds
             self.samples_spent = int(data["samples_spent"])
@@ -521,7 +647,8 @@ class AdaptiveSession:
                 self.camera = (camera_from_view(meta["view"]) if "view" in meta
                                else self.world.camera)
             # Resume skips the bootstrap iff the saved run completed it.
-            self._bootstrapped = bool((data["state4"][: self.n_blocks] >= 2).all())
+            r_b = torch.from_numpy(data["state4"])
+            self._bootstrapped = bool((self._unstripe(r_b) >= 2).all())
 
     # -- outputs --------------------------------------------------------------
 
@@ -530,10 +657,8 @@ class AdaptiveSession:
         """True once every block has >= 2 statistics rounds."""
         return self._bootstrapped
 
-    @property
-    def framebuffer(self) -> torch.Tensor:
-        """Current per-pixel mean image [H, W, 3]."""
-        fb = self._state[0][: self.n_blocks].reshape(
+    def _image(self, fbB: torch.Tensor) -> torch.Tensor:
+        fb = self._unstripe(fbB).reshape(
             self.blocks_y, self.blocks_x, self.block_h, self.block_w, 3
         )
         fb = fb.permute(0, 2, 1, 3, 4).reshape(
@@ -542,9 +667,21 @@ class AdaptiveSession:
         return fb[: self.height, : self.width]
 
     @property
+    def framebuffer(self) -> torch.Tensor:
+        """Current per-pixel mean image [H, W, 3]; under several processes
+        only this rank's stripes (``fetch_framebuffer`` gathers them)."""
+        return self._image(self._stacked(0, fetch=False))
+
+    def fetch_framebuffer(self) -> torch.Tensor:
+        """The whole image [H, W, 3] on the session's device (a gather every
+        rank joins under several processes)."""
+        return self._image(self._stacked(0))
+
+    @property
     def spp_map(self) -> np.ndarray:
-        """Per-pixel accumulated sample count [H, W] (a host read)."""
-        n = self._state[3][: self.n_blocks].cpu().numpy()
+        """Per-pixel accumulated sample count [H, W] (a host read; a gather
+        every rank joins under several processes)."""
+        n = self._unstripe(self._stacked(3)).cpu().numpy()
         m = np.repeat(
             np.repeat(n.reshape(self.blocks_y, self.blocks_x), self.block_h, axis=0),
             self.block_w, axis=1,
@@ -553,8 +690,9 @@ class AdaptiveSession:
 
     @property
     def segments_traced(self) -> float:
-        """Total ray segments traced (waits for pending device work)."""
-        if self._segs_pending:
-            pending, self._segs_pending = self._segs_pending, []
-            self._segs_total += float(torch.stack(pending).sum().item())
+        """Total ray segments traced (waits for pending device work); under
+        several processes every rank's (an ``all_reduce`` every rank
+        joins)."""
+        pending, self._segs_pending = self._segs_pending, []
+        self._segs_total += sharding.total_segments(pending, self.mesh)
         return self._segs_total

@@ -8,6 +8,9 @@ Three compute paths produce frames with the same semantics:
 * ``cpu``   — the native C++ SAH-BVH renderer (native/cpu_backend.py), with
   its own mt19937 stream: images agree with the others statistically.
 
+Sharding (``config.shard`` tiles, samples or hybrid) wraps ``cuda`` and
+``torch`` over a device mesh (parallel/sharding.py); ``cpu`` refuses it.
+
 ``auto`` means ``cuda``: the entry points run on the card unless the caller
 asks for the CPU with ``torch`` or ``cpu``. Neither ``auto`` nor ``cuda``
 runs on the CPU: without a GPU they raise. Every scene takes the backend it
@@ -61,6 +64,10 @@ def renderer_factory(backend: str, world: api.World = None, config: RenderConfig
         from myraytracer_tpu_torch.kernels.trace import make_renderer
     else:
         from myraytracer_tpu_torch.render.integrator import make_renderer
+    if config is not None and config.shard != "none":
+        from myraytracer_tpu_torch.parallel.sharding import shard_renderer_factory
+
+        return shard_renderer_factory(make_renderer, config.shard, block_factory=backend)
     return make_renderer
 
 

@@ -197,6 +197,10 @@ class RenderSession:
         self.key = crng.key_from_seed(config.seed)
 
         self.frame_batch = config.resolve_frame_batch(resolved)
+        if self.frame_batch > 1 and config.shard not in ("none", "tiles"):
+            # Tile stripes keep contiguous sample windows across frame
+            # buckets; sample and hybrid shards do not (parallel/sharding.py).
+            raise ValueError("frame_batch > 1 requires shard 'none' or 'tiles'")
         self._render = renderer_factory(
             world.camera,
             self.width,
@@ -221,6 +225,11 @@ class RenderSession:
         self._acc = Accumulation(torch.zeros(
             (self.height, self.width, 3), dtype=torch.float32, device=self.device
         ), 0, 0)
+        # A sharded renderer's mesh and the rows each entry renders: under
+        # several processes a rank's framebuffer holds only its own rows.
+        self.mesh = getattr(self._render, "mesh", None)
+        self.ndev = self.mesh.size if self.mesh is not None else 1
+        self._rows = getattr(self._render, "rows", None)
         # Per-step segment totals stay on the device until read, so a step
         # does not wait for the device; they fold into a float64 host total.
         self._segs_total = 0.0
@@ -253,11 +262,24 @@ class RenderSession:
 
     @property
     def segments_traced(self) -> float:
-        """Total ray segments traced (waits for pending device work)."""
-        if self._segs_pending:
-            pending, self._segs_pending = self._segs_pending, []
-            self._segs_total += float(torch.stack(pending).sum().item())
+        """Total ray segments traced (waits for pending device work); under
+        several processes every rank's, an ``all_reduce`` that every rank
+        must join."""
+        from myraytracer_tpu_torch.parallel.sharding import total_segments
+
+        pending, self._segs_pending = self._segs_pending, []
+        self._segs_total += total_segments(pending, self.mesh)
         return self._segs_total
+
+    def fetch_framebuffer(self) -> torch.Tensor:
+        """The whole framebuffer on the session's device: the framebuffer
+        itself, unless it is split across processes, where every rank's
+        rows are gathered (``sharding.fetch_array``, a collective)."""
+        if self._rows is None or self._rows.mesh.proc is None:
+            return self.framebuffer
+        from myraytracer_tpu_torch.parallel.sharding import fetch_array
+
+        return torch.from_numpy(fetch_array(self.framebuffer, self._rows)).to(self.device)
 
     @property
     def accumulated_spp(self) -> int:
@@ -350,7 +372,12 @@ class RenderSession:
         return self._fingerprint
 
     def save_checkpoint(self, path) -> None:
-        """Save accumulation state to ``path`` (npz)."""
+        """Save accumulation state to ``path`` (npz).
+
+        ``path=None`` joins the framebuffer's gather and the segment count's
+        reduction without writing a file: under several processes those are
+        collectives every rank must join, while one rank owns the file.
+        """
         meta = {
             "version": CHECKPOINT_VERSION,
             "width": self.width,
@@ -374,7 +401,7 @@ class RenderSession:
         if self.scene.cam is not None:
             meta["view"] = camera_view(self.camera)
         arrays = dict(
-            framebuffer=self.framebuffer.cpu().numpy(),
+            framebuffer=self.fetch_framebuffer().cpu().numpy(),
             frame_count=np.int64(self.frame_count),
             sample_cursor=np.int64(self.sample_cursor),
             segments_traced=np.float64(self.segments_traced),
@@ -383,7 +410,8 @@ class RenderSession:
         if self.scene.cam is not None:
             # The runtime camera is part of the accumulation state.
             arrays["camera"] = self.scene.cam.cpu().numpy()
-        np.savez(pathlib.Path(path), **arrays)
+        if path is not None:
+            np.savez(pathlib.Path(path), **arrays)
 
     def load_checkpoint(self, path) -> None:
         with np.load(pathlib.Path(path), allow_pickle=False) as data:

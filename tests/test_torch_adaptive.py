@@ -302,8 +302,14 @@ def test_session_backends_and_unsupported_options():
         for backend in ("auto", "cuda"):
             with pytest.raises(RuntimeError, match="CUDA GPU"):
                 port_session("reference", 1, backend=backend)
-    with pytest.raises(NotImplementedError):
-        port_session("reference", 1, shard="tiles")
+    # Tile stripes are ported: on the default mesh (the CPU, one stripe) a
+    # shard="tiles" session renders; samples and hybrid are refused.
+    s = port_session("reference", 1, shard="tiles")
+    s.step()
+    assert s.ndev == 1 and s.bootstrapped and np.isfinite(s.framebuffer.numpy()).all()
+    for mode in ("samples", "hybrid"):
+        with pytest.raises(ValueError, match="tiles"):
+            port_session("reference", 1, shard=mode)
     # The estimator's modes are ported: sessions build with them.
     for kw in (dict(nee=True), dict(qmc=True), dict(rr=2)):
         assert port_session("reference", 1, **kw).backend_resolved == "torch"

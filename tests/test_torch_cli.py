@@ -150,3 +150,80 @@ def test_cli_rejects_bad_denoise_and_aov_values(tmp_path):
     with pytest.raises(SystemExit, match="unknown channel"):
         cli.main(BASE + ["--aov", "albedo,beauty", "--out", str(out)])
     assert not out.exists()
+
+
+# -- sharding (--shard, --multihost) against the JAX CLI --------------------
+
+
+@pytest.fixture
+def eight_stripes(monkeypatch):
+    """The port's default mesh as 8 CPU entries, as the JAX CLI's is its 8
+    virtual CPU devices (tests/conftest.py)."""
+    from myraytracer_tpu_torch.parallel import sharding
+
+    default, hybrid, cpu8 = sharding.default_mesh, sharding.hybrid_mesh, ["cpu"] * 8
+    monkeypatch.setattr(sharding, "default_mesh",
+                        lambda devices=None, axis="tiles", device_type=None: default(cpu8, axis))
+    monkeypatch.setattr(sharding, "hybrid_mesh",
+                        lambda devices=None, samples=None, device_type=None: hybrid(cpu8, samples))
+
+
+@pytest.mark.parametrize("mode", ["tiles", "samples", "hybrid"])
+def test_cli_shard_writes_the_jax_clis_image(tmp_path, eight_stripes, mode):
+    """``--shard M`` on 8 CPU entries against the JAX CLI's on its 8 CPU
+    devices (raw .npy sinks): the bar the unsharded port meets against
+    jitted JAX (``test_torch_trace.assert_render_close``); tile sharding is
+    bitwise the port's unsharded CLI."""
+    from test_torch_trace import assert_render_close
+
+    got, want = _both_clis(tmp_path, ["--shard", mode], suffix=".npy")
+    a, b = np.load(got), np.load(want)
+    assert a.shape == b.shape == (32, 64, 3)
+    assert_render_close(a, b, 1.0, 1.0)
+    if mode == "tiles":
+        plain = tmp_path / "plain.npy"
+        assert cli.main(["--backend", "torch"] + _SMALL + ["--out", str(plain)]) == 0
+        np.testing.assert_array_equal(a, np.load(plain))
+
+
+@pytest.mark.parametrize("mode", ["samples", "hybrid"])
+def test_cli_adaptive_refuses_sample_shards_as_the_jax_cli_does(tmp_path, mode):
+    from myraytracer_tpu import cli as jcli
+
+    flags = _SMALL + ["--adaptive", "--shard", mode, "--out", str(tmp_path / "x.png")]
+    with pytest.raises(SystemExit) as mine:
+        cli.main(["--backend", "torch"] + flags)
+    with pytest.raises(SystemExit) as theirs:
+        jcli.main(["--backend", "jnp"] + flags)
+    assert str(mine.value) == str(theirs.value) == (
+        f"--adaptive does not compose with --shard {mode} (tile stripes only)")
+
+
+@pytest.mark.parametrize("extra, match", [
+    (["--adaptive", "--multihost", "127.0.0.1:1,2,0"],
+     "--adaptive does not compose with --multihost without --shard tiles"),
+    (["--adaptive", "--shard", "tiles", "--multihost", "127.0.0.1:1,2,0", "--serve", "0"],
+     r"--adaptive does not compose with --serve under --multihost \(the viewer is "
+     r"single-process\)"),
+    (["--serve", "0", "--multihost", "127.0.0.1:1,2,0"],
+     "--serve is single-process; run the viewer without --multihost"),
+    (["--scene", "defocus", "--serve", "0", "--interactive", "--shard", "tiles"],
+     r"--interactive needs --serve, a general-mode \(positionable\) camera scene, and "
+     r"--shard none"),
+])
+def test_cli_refuses_what_sharding_does_not_compose_with(tmp_path, extra, match):
+    """The JAX CLI's messages; the --multihost refusals come before any
+    process group is joined."""
+    with pytest.raises(SystemExit, match=match):
+        cli.main(["--backend", "torch"] + _SMALL + extra + ["--out", str(tmp_path / "x.png")])
+    assert not (tmp_path / "x.png").exists()
+
+
+def test_cli_shard_refusals_of_the_session(tmp_path):
+    out = str(tmp_path / "x.png")
+    with pytest.raises(ValueError, match="frame_batch > 1 requires shard"):
+        cli.main(["--backend", "torch"] + _SMALL + ["--shard", "samples", "--frame-batch", "2",
+                                                    "--out", out])
+    with pytest.raises(ValueError, match="--shard tiles"):
+        cli.main(["--backend", "cpu", "--scene", "final", "--width", "32", "--height", "16",
+                  "--shard", "tiles", "--out", out])

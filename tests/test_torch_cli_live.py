@@ -243,8 +243,9 @@ def test_cli_live_flags_refuse_what_they_cannot_do(tmp_path):
 
 
 def test_cli_flags_differ_from_the_jax_clis_by_the_unported_modules():
-    """The two parsers' flags differ by exactly the sharding (--shard,
-    --multihost); the backend choices by the JAX package's names for its
+    """Every module is ported: the two parsers have the same flags (the
+    sharding's --shard and --multihost included, with the same shard
+    modes); the backend choices differ by the JAX package's names for its
     paths (cpu is both packages' native renderer)."""
     from myraytracer_tpu import cli as jcli
 
@@ -254,9 +255,9 @@ def test_cli_flags_differ_from_the_jax_clis_by_the_unported_modules():
 
     mine, my_choices = flags(cli.build_parser())
     theirs, their_choices = flags(jcli.build_parser())
-    assert mine <= theirs
-    assert theirs - mine == {"--shard", "--multihost"}
-    assert len(mine - {"-h", "--help"}) == 31
+    assert mine == theirs
+    assert len(mine - {"-h", "--help"}) == 33
+    assert my_choices["shard"] == their_choices["shard"] == ["none", "tiles", "samples", "hybrid"]
     assert set(my_choices["backend"]) == {"auto", "cuda", "torch", "cpu"}
     assert set(their_choices["backend"]) == {"auto", "jnp", "pallas", "cpu"}
 
