@@ -175,6 +175,20 @@ def unit_ball_from_uniforms(u1: torch.Tensor, u2: torch.Tensor, u3: torch.Tensor
     return s * _cbrt01(u3)
 
 
+def unit_sphere(key, lane_id, draw_id) -> V3:
+    """Uniform direction on the unit sphere from draw slot ``draw_id``."""
+    u1, u2 = uniform2(key, lane_id, draw_id)
+    return unit_sphere_from_uniforms(u1, u2)
+
+
+def unit_ball(key, lane_id, draw_id) -> V3:
+    """Uniform point inside the unit ball; consumes two consecutive draw
+    slots, ``draw_id`` and ``draw_id + 1`` (mod 2^32)."""
+    u1, u2 = uniform2(key, lane_id, draw_id)
+    u3, _ = uniform2(key, lane_id, draw_id + 1)
+    return unit_ball_from_uniforms(u1, u2, u3)
+
+
 def unit_disk_from_uniforms(u1: torch.Tensor, u2: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """Uniform point inside the unit disk (for thin-lens defocus)."""
     r = torch.sqrt(u1)

@@ -47,6 +47,17 @@ class V3(NamedTuple):
     def ones(shape, device=None, dtype=torch.float32) -> "V3":
         return V3.full(shape, 1.0, device, dtype)
 
+    @staticmethod
+    def const(x: float, y: float, z: float, device=None, dtype=torch.float32) -> "V3":
+        """A constant vector of three 0-d tensors."""
+        return V3(*(torch.tensor(c, dtype=dtype, device=device) for c in (x, y, z)))
+
+    @staticmethod
+    def from_stacked(a: torch.Tensor, dim: int = -1) -> "V3":
+        """Split a tensor with a size-3 dimension into its components."""
+        parts = torch.movedim(a, dim, 0)
+        return V3(parts[0], parts[1], parts[2])
+
     def stacked(self, dim: int = -1) -> torch.Tensor:
         """Materialize as a tensor with a size-3 dimension."""
         return torch.stack([self.x, self.y, self.z], dim=dim)
@@ -82,6 +93,9 @@ class V3(NamedTuple):
 
     def length_sq(self) -> torch.Tensor:
         return self.dot(self)
+
+    def length(self) -> torch.Tensor:
+        return torch.sqrt(self.length_sq())
 
     def normalize(self) -> "V3":
         # WGSL normalize(): no epsilon guard. The reciprocal is the

@@ -49,10 +49,10 @@ from myraytracer_tpu_torch.render.dispatch import resolve_backend
 from myraytracer_tpu_torch.render.lights import extract_lights
 from myraytracer_tpu_torch.render.session import (
     CHECKPOINT_VERSION, camera_from_view, camera_view, fma_f32, scene_fingerprint,
-    wants_spatial_sort, wants_triangle_bvh,
+    session_scene,
 )
 from myraytracer_tpu_torch.scene import api
-from myraytracer_tpu_torch.scene.compile import CompiledScene, compile_scene
+from myraytracer_tpu_torch.scene.compile import CompiledScene
 from myraytracer_tpu_torch.utils import profiling
 
 # The JAX kernel's 16x128 lane tile as a pixel block: BLOCK_W = 64 and
@@ -315,14 +315,7 @@ class AdaptiveSession:
             for d in range(self.ndev)
         )
 
-        self.scene = compile_scene(
-            world, spatial_sort=wants_spatial_sort(world), device=self.device,
-            triangle_bvh=wants_triangle_bvh(world, self.backend_resolved),
-        )
-        if not world.camera.reference_mode:
-            self.scene = self.scene._replace(cam=torch.from_numpy(
-                pack_camera(world.camera, self.width, self.height)
-            ).to(self.device))
+        self.scene = session_scene(world, self.backend_resolved, self.width, self.height)
         self.key = crng.key_from_seed(config.seed)
 
         self.windows = config.resolve_adaptive_windows(self.backend_resolved)

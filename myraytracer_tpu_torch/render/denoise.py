@@ -378,3 +378,7 @@ class Denoiser:
         albedo, normal, depth = self._features(cam)
         return atrous_denoise(fb, albedo, normal, depth, iters, *self.sigmas)
 
+
+def make_denoiser(world: api.World, width: int, height: int, **kwargs) -> Denoiser:
+    """CLI-facing constructor (see Denoiser; ``device`` is required)."""
+    return Denoiser(world, width, height, **kwargs)

@@ -443,4 +443,6 @@ def frame_renderer(block, spp: int, frames: int = 1):
         img_sum, segs = block(scene, key, 0, int(sample_base), n_valid)
         return img_sum * (1.0 / spp), segs.sum(dtype=torch.float64)
 
+    # The kernel's table cache, where the block has one (kernels/trace.py).
+    render.tables = getattr(block, "tables", None)
     return render

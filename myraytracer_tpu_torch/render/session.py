@@ -143,6 +143,40 @@ def resolve_device_backend(backend: str) -> str:
     return backend
 
 
+def session_scene(world: api.World, backend: str, width: int, height: int):
+    """The compiled scene a session of ``backend`` renders, on its device
+    (the card for ``cuda``), with the packed runtime camera of a general
+    camera at ``width`` x ``height``: ``set_camera`` swaps it, and the
+    renderer reads it each frame."""
+    device = torch.device("cuda" if backend == "cuda" else "cpu")
+    scene = compile_scene(
+        world, spatial_sort=wants_spatial_sort(world), device=device,
+        triangle_bvh=wants_triangle_bvh(world, backend),
+    )
+    if not world.camera.reference_mode:
+        scene = scene._replace(cam=torch.from_numpy(
+            pack_camera(world.camera, width, height)
+        ).to(device))
+    return scene
+
+
+def renderer_kwargs(world: api.World, config: RenderConfig, frames: int = 1) -> dict:
+    """The keyword arguments a session passes its renderer factory after
+    (camera, width, height, samples_per_frame, ray_depth)."""
+    return dict(
+        t_min=config.t_min,
+        t_max=config.t_max,
+        sample_batch=config.resolve_sample_batch(),
+        material_set=world.material_set or None,
+        frames=frames,
+        sky=world.ambient,
+        nee_lights=extract_lights(world) if config.nee else None,
+        texture_set=world.texture_set or None,
+        qmc=config.qmc,
+        rr=config.rr,
+    )
+
+
 class RenderSession:
     """Progressive accumulation over frames of ``samples_per_frame`` samples.
 
@@ -184,16 +218,7 @@ class RenderSession:
 
             pred = cpu_backend.route_prediction(world, config)
             self.routing_prediction = pred[0] if pred else None
-        self.scene = compile_scene(
-            world, spatial_sort=wants_spatial_sort(world), device=self.device,
-            triangle_bvh=wants_triangle_bvh(world, resolved),
-        )
-        if not world.camera.reference_mode:
-            # The packed runtime camera: set_camera swaps it, and the
-            # renderer reads it each frame.
-            self.scene = self.scene._replace(cam=torch.from_numpy(
-                pack_camera(world.camera, self.width, self.height)
-            ).to(self.device))
+        self.scene = session_scene(world, resolved, self.width, self.height)
         self.key = crng.key_from_seed(config.seed)
 
         self.frame_batch = config.resolve_frame_batch(resolved)
@@ -207,16 +232,7 @@ class RenderSession:
             self.height,
             config.samples_per_frame,
             config.ray_depth,
-            t_min=config.t_min,
-            t_max=config.t_max,
-            sample_batch=config.resolve_sample_batch(),
-            material_set=world.material_set or None,
-            frames=self.frame_batch,
-            sky=world.ambient,
-            nee_lights=extract_lights(world) if config.nee else None,
-            texture_set=world.texture_set or None,
-            qmc=config.qmc,
-            rr=config.rr,
+            **renderer_kwargs(world, config, self.frame_batch),
         )
         # One attribute, so that a step commits with one store: an interrupt
         # (Ctrl-C under --frames 0) between separate stores could leave a
@@ -485,3 +501,14 @@ class RenderSession:
         self._segs_total = float(data["segments_traced"])
         self._segs_pending = []
 
+
+def render(
+    world: api.World,
+    config: RenderConfig = RenderConfig(),
+    frames: int = 1,
+    renderer_factory=None,
+) -> np.ndarray:
+    """One-shot convenience: run a session for ``frames`` frames on the
+    config's backend and return the framebuffer on the host."""
+    session = RenderSession(world, config, renderer_factory=renderer_factory)
+    return session.run(frames).cpu().numpy()

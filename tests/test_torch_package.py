@@ -57,6 +57,14 @@ with tempfile.TemporaryDirectory() as d:
     obj = obj_scene(d + "/t.obj", ground_sphere=True)
 c = make_session(obj, RenderConfig(width=8, height=4, ray_depth=3, backend="cpu"))
 assert float(c.run(1).mean()) > 0 and c.routing_prediction > 0
+from myraytracer_tpu_torch import (adaptive_bench, bench, denoise_bench, goldens, qmc_bench,
+                                   quality, rr_bench)
+from myraytracer_tpu_torch.utils import hwgolden
+from myraytracer_tpu_torch.render.session import render
+from myraytracer_tpu_torch.render.denoise import make_denoiser
+assert render(get_scene("defocus"), RenderConfig(width=8, height=4, ray_depth=3,
+                                                 backend="torch")).shape == (4, 8, 3)
+assert hwgolden.frame_hash(fb.numpy()) == hwgolden.frame_hash(fb)
 bad = sorted(m for m in sys.modules if m == "jax" or m.startswith(("jax.", "myraytracer_tpu.")))
 bad += [m for m in ("myraytracer_tpu", "jaxlib") if m in sys.modules]
 print("LOADED", bad)
