@@ -61,22 +61,35 @@ BASE_ITERS = {
 }
 
 
-def probe(name: str, tiles: int, device: torch.device, iters: Optional[int] = None) -> dict:
+def bound_ns_per_iter(name: str, tiles: int, sm_hz: float):
+    """The least ns a trip of probe ``name`` can take on ``tiles`` tiles,
+    and what bounds it: the larger of its FP32 operations over the peak
+    this grid can reach (``"operations"``) and its longest dependent chain
+    at ``probes.FP32_LATENCY_CYCLES`` a link at ``sm_hz`` (``"latency"``):
+    a lane's chain cannot finish sooner however few operations it holds."""
+    body = probes.MICRO_BODIES[name]
+    peak = probes.PEAK_FP32 * probes.fp32_peak_share(tiles * probes.R // probes.BLOCK)
+    ops = body.flops * probes.R * tiles / peak * 1e9
+    lat = body.chain * probes.FP32_LATENCY_CYCLES / sm_hz * 1e9
+    return (ops, "operations") if ops >= lat else (lat, "latency")
+
+
+def probe(name: str, tiles: int, device: torch.device, iters: Optional[int] = None,
+          sm_hz: float = probes.SM_CLOCK_MAX_HZ) -> dict:
     """One probe at one shape: ns a trip, the shorter launch's ms, ns an
-    operation, and the least ns a trip the card's FP32 peak allows this
-    grid (``bound_ns_per_iter``)."""
+    operation, and the least ns a trip the card allows this grid at the SM
+    clock ``sm_hz`` (``bound_ns_per_iter``, bound by ``bound_by``)."""
     body = probes.MICRO_BODIES[name]
     base = int(iters or BASE_ITERS[name])
     per_iter, t_lo = probes.time_pair(
         lambda n: probes.micro(name, n, tiles, device), base, device)
-    blocks = tiles * probes.R // probes.BLOCK
-    peak = probes.PEAK_FP32 * probes.fp32_peak_share(blocks)
+    bound, by = bound_ns_per_iter(name, tiles, sm_hz)
     return {
-        "probe": name, "tiles": tiles, "blocks": blocks, "iters": base,
+        "probe": name, "tiles": tiles, "blocks": tiles * probes.R // probes.BLOCK, "iters": base,
         "ns_per_iter": per_iter * 1e9, "fixed_ms": t_lo * 1e3,
         "ns_per_op": per_iter * 1e9 / body.ops if body.ops else None,
-        "flops_per_iter": body.flops * probes.R * tiles,
-        "bound_ns_per_iter": body.flops * probes.R * tiles / peak * 1e9,
+        "flops_per_iter": body.flops * probes.R * tiles, "chain": body.chain,
+        "bound_ns_per_iter": bound, "bound_by": by, "sm_hz": sm_hz,
     }
 
 
@@ -85,19 +98,25 @@ def line(r: dict) -> str:
     msg = f"{r['probe']}: {r['ns_per_iter']:.1f} ns/iter (fixed {r['fixed_ms']:.1f} ms)"
     if r["ns_per_op"] is not None:
         msg += f", {r['ns_per_op']:.2f} ns/op"
-    return msg + f" [{r['tiles']} tile(s), bound {r['bound_ns_per_iter']:.3f} ns/iter]"
+    return msg + (f" [{r['tiles']} tile(s), bound {r['bound_ns_per_iter']:.3f} ns/iter by "
+                  f"{r['bound_by']}]")
 
 
 def run(device="cuda", tiles=(1, probes.CARD_TILES), iters: Optional[int] = None,
         out=print) -> List[dict]:
     """Every probe at every shape of ``tiles``, one printed line each;
-    returns the readings. ``iters`` overrides every probe's trip count."""
+    returns the readings. ``iters`` overrides every probe's trip count. The
+    latency bound takes the SM clock read before the probes (on the CPU,
+    the card's highest, ``probes.SM_CLOCK_MAX_HZ``)."""
     device = torch.device(device)
+    sm_hz = probes.SM_CLOCK_MAX_HZ
     if device.type == "cuda":
         if not torch.cuda.is_available():
             raise RuntimeError("microbench needs a CUDA GPU, and torch.cuda.is_available() "
                                "is False")
-        out(f"{sweep.card()} | SM clock {probes.sm_clock()}")
+        clock = probes.sm_clock()
+        sm_hz = probes.clock_hz(clock)
+        out(f"{sweep.card()} | SM clock {clock}")
     else:
         out("cpu: the plain PyTorch versions on the host clock (no device time)")
     readings = []
@@ -106,7 +125,7 @@ def run(device="cuda", tiles=(1, probes.CARD_TILES), iters: Optional[int] = None
         out(f"shape: {n_tiles} tile(s) of {probes.R} lanes = {blocks} blocks of {probes.BLOCK} "
             f"threads on {min(blocks, probes.SMS)} of {probes.SMS} SMs")
         for name in probes.MICRO_BODIES:
-            readings.append(probe(name, n_tiles, device, iters))
+            readings.append(probe(name, n_tiles, device, iters, sm_hz))
             out(line(readings[-1]))
     if device.type == "cuda":
         out(f"SM clock after: {probes.sm_clock()}")

@@ -13,8 +13,8 @@ x S spheres a trip:
           from shared memory, the quadratic, four candidates combined in a
           tree, nine record values selected with the winner.
   mxu     the b and c terms of all pairs as one [R, 16] x [16, 2S] product
-          on the tensor cores (TF32 operands, f32 sums), then roots,
-          minimum and lowest winning index in FP32.
+          on the tensor cores (wgmma, TF32 operands, f32 sums), then roots,
+          minimum and lowest winning index in FP32 on the accumulators.
   vbcast  the same minimum and index from the quadratic in FP32, with no
           tensor cores, no record and no tree.
 
@@ -25,8 +25,8 @@ TF32 version and against f32.
 
 Each form is timed at two trip counts whose difference cancels the launch,
 in turns, with CUDA events, at one tile (2048 rays: 8 blocks of 256
-threads, 16 for ``mxu``, a block on its own SM) and at ``CARD_TILES`` tiles,
-which fill the card. One line a form and shape (``ps/pair``, ``Gpairs/s``),
+threads; ``mxu`` 32 blocks of one warpgroup, 64 rays each; a block on its
+own SM) and at ``CARD_TILES`` tiles, which fill the card. One line a form and shape (``ps/pair``, ``Gpairs/s``),
 after the card's name, power limit and SM clock. It needs a CUDA GPU and
 raises without one; ``device="cpu"`` runs the plain PyTorch versions on the
 host clock instead (for tests: no such number is a device time).
@@ -48,7 +48,7 @@ SPHERES = 128
 FORMS = ("sweep", "mxu", "vbcast")
 LABELS = {
     "sweep": "sweep  (shared-memory scalars, w4, merged record)",
-    "mxu": "mxu    (wmma TF32 [R,16]x[16,2S] + FP32 post) ",
+    "mxu": "mxu    (wgmma TF32 [R,16]x[16,2S] + FP32 roots)",
     "vbcast": "vbcast (FP32 quadratic, min and index)       ",
 }
 # FP32 operations a ray-sphere pair outside the tensor cores: the sweep's
@@ -84,6 +84,12 @@ def launcher(form: str, t: Dict[str, torch.Tensor], tiles: int):
     return lambda n: probes.vbcast(t["rows"], t["col"], n, tiles)
 
 
+def blocks(form: str, tiles: int) -> int:
+    """Blocks of ``form``'s launch on ``tiles`` tiles: 256 threads a block,
+    a thread a ray (``mxu``: a warpgroup a block, 64 rays)."""
+    return tiles * probes.R // (probes.MXU_RAYS if form == "mxu" else probes.BLOCK)
+
+
 def bound_ps_per_pair(form: str, blocks: int) -> float:
     """The least ps a pair the card allows ``form`` on a grid of ``blocks``
     blocks: its FP32 operations over the FP32 peak these blocks can reach,
@@ -103,12 +109,12 @@ def probe(form: str, t: Dict[str, torch.Tensor], tiles: int, iters: int) -> dict
     n_s = t["sph"].shape[1]
     pairs = probes.R * n_s * tiles
     per_iter, t_lo = probes.time_pair(launcher(form, t, tiles), iters, device)
-    blocks = tiles * probes.R // (probes.BLOCK // (2 if form == "mxu" else 1))
+    n_blocks = blocks(form, tiles)
     ps = per_iter / pairs * 1e12
-    return {"form": form, "tiles": tiles, "blocks": blocks, "iters": iters, "spheres": n_s,
+    return {"form": form, "tiles": tiles, "blocks": n_blocks, "iters": iters, "spheres": n_s,
             "ps_per_pair": ps, "gpairs_s": 1e3 / ps if ps > 0 else float("inf"),
             "ms_per_iter": per_iter * 1e3, "lo_ms": t_lo * 1e3,
-            "bound_ps_per_pair": bound_ps_per_pair(form, blocks)}
+            "bound_ps_per_pair": bound_ps_per_pair(form, n_blocks)}
 
 
 def line(r: dict) -> str:
