@@ -61,6 +61,11 @@ BASE_ITERS = {
 }
 
 
+# Launches of about 16 ms each that bring the card to its working clock
+# before the clock is read.
+LOAD_LAUNCHES = 10
+
+
 def bound_ns_per_iter(name: str, tiles: int, sm_hz: float):
     """The least ns a trip of probe ``name`` can take on ``tiles`` tiles,
     and what bounds it: the larger of its FP32 operations over the peak
@@ -106,17 +111,24 @@ def run(device="cuda", tiles=(1, probes.CARD_TILES), iters: Optional[int] = None
         out=print) -> List[dict]:
     """Every probe at every shape of ``tiles``, one printed line each;
     returns the readings. ``iters`` overrides every probe's trip count. The
-    latency bound takes the SM clock read before the probes (on the CPU,
-    the card's highest, ``probes.SM_CLOCK_MAX_HZ``)."""
+    latency bound takes the SM clock read with the card under load, after
+    LOAD_LAUNCHES launches of the unfused chain on a full card (an idle
+    card reads a fraction of it); on the CPU, the card's highest,
+    ``probes.SM_CLOCK_MAX_HZ``."""
     device = torch.device(device)
     sm_hz = probes.SM_CLOCK_MAX_HZ
     if device.type == "cuda":
         if not torch.cuda.is_available():
             raise RuntimeError("microbench needs a CUDA GPU, and torch.cuda.is_available() "
                                "is False")
+        idle = probes.sm_clock()
+        for _ in range(LOAD_LAUNCHES):
+            probes.micro("fma-chain-64op", BASE_ITERS["fma-chain-64op"], probes.CARD_TILES,
+                         device)
+        torch.cuda.synchronize(device)
         clock = probes.sm_clock()
         sm_hz = probes.clock_hz(clock)
-        out(f"{sweep.card()} | SM clock {clock}")
+        out(f"{sweep.card()} | SM clock {idle} idle, {clock} under load")
     else:
         out("cpu: the plain PyTorch versions on the host clock (no device time)")
     readings = []

@@ -26,8 +26,9 @@ TF32 version and against f32.
 Each form is timed at two trip counts whose difference cancels the launch,
 in turns, with CUDA events, at one tile (2048 rays: 8 blocks of 256
 threads; ``mxu`` 32 blocks of one warpgroup, 64 rays each; a block on its
-own SM) and at ``CARD_TILES`` tiles, which fill the card. One line a form and shape (``ps/pair``, ``Gpairs/s``),
-after the card's name, power limit and SM clock. It needs a CUDA GPU and
+own SM) and at ``CARD_TILES`` tiles, which fill the card. One line a form
+and shape (``ps/pair``, ``Gpairs/s``), after the card's name, power limit
+and SM clock. It needs a CUDA GPU and
 raises without one; ``device="cpu"`` runs the plain PyTorch versions on the
 host clock instead (for tests: no such number is a device time).
 """
