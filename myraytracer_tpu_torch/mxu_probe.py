@@ -26,15 +26,14 @@ TF32 version and against f32.
 
 Each form is timed at two trip counts whose difference cancels the launch,
 in turns, with CUDA events, at one tile (2048 rays: ``sweep`` and
-``vbcast`` in blocks of ``probes.HIT_SHAPE``, rays a thread x threads;
-``mxu`` 32 blocks of one warpgroup, 64 rays each; a block on its own SM)
-and at ``CARD_TILES`` tiles, which fill the card. One line a form and shape
+``vbcast`` 4 blocks of 256 threads, two rays a thread; ``mxu`` 32 blocks
+of one warpgroup, 64 rays each; a block on its own SM) and at
+``CARD_TILES`` tiles, which fill the card. One line a form and shape
 (``ps/pair``, ``Gpairs/s``, the FP32-peak bound and the issue bound),
-after the card's name, power limit and SM clock under load. ``shapes()``
-times ``sweep`` and ``vbcast`` at every shape of ``probes.HIT_SHAPES``. It
-needs a CUDA GPU and
-raises without one; ``device="cpu"`` runs the plain PyTorch versions on the
-host clock instead (for tests: no such number is a device time).
+after the card's name, power limit and SM clock under load and the sweep
+and vbcast kernels' registers. It needs a CUDA GPU and raises without one;
+``device="cpu"`` runs the plain PyTorch versions on the host clock instead
+(for tests: no such number is a device time).
 """
 
 from __future__ import annotations
@@ -56,8 +55,6 @@ LABELS = {
     "mxu": "mxu    (wgmma TF32 [R,16]x[16,2S] + FP32 roots)",
     "vbcast": "vbcast (FP32 quadratic, min and index)       ",
 }
-# Launches that bring the card to its working clock before it is read.
-LOAD_LAUNCHES = 10
 # FP32 operations a ray-sphere pair outside the tensor cores: the sweep's
 # quadratic (27), nine record adds and the tree's and the carry's selects
 # and compares (11 a sphere); the matrix forms' quadratic, roots, selects
@@ -93,26 +90,22 @@ def inputs(n_spheres: int, device) -> Dict[str, torch.Tensor]:
             for k, v in probes.hit_inputs(n_spheres).items()}
 
 
-def launcher(form: str, t: Dict[str, torch.Tensor], tiles: int, shape=None):
-    """``launch(n)``: one launch of ``form`` for n trips on ``tiles``
-    tiles (``sweep`` and ``vbcast`` at ``shape``, default
-    ``probes.HIT_SHAPE[form]``)."""
+def launcher(form: str, t: Dict[str, torch.Tensor], tiles: int):
+    """``launch(n)``: one launch of ``form`` for n trips on ``tiles`` tiles."""
     if form == "sweep":
-        return lambda n: probes.sweep_at(shape or probes.HIT_SHAPE[form], t["sph"], n, tiles)
+        return lambda n: probes.sweep(t["sph"], n, tiles)
     if form == "mxu":
         return lambda n: probes.mxu(t["a"], t["panel"], n, tiles)
-    return lambda n: probes.vbcast_at(shape or probes.HIT_SHAPE[form], t["rows"], t["col"], n,
-                                      tiles)
+    return lambda n: probes.vbcast(t["rows"], t["col"], n, tiles)
 
 
-def blocks(form: str, tiles: int, shape=None) -> int:
-    """Blocks of ``form``'s launch on ``tiles`` tiles: ``sweep`` and
-    ``vbcast`` a block of ``shape`` (rays a thread, threads; default
-    ``probes.HIT_SHAPE[form]``), ``mxu`` a warpgroup of 64 rays."""
-    if form == "mxu":
-        return tiles * probes.R // probes.MXU_RAYS
-    rays, threads = shape or probes.HIT_SHAPE[form]
-    return tiles * probes.R // (rays * threads)
+def blocks(form: str, tiles: int) -> int:
+    """The grid whose share of the card ``form``'s bounds take on
+    ``tiles`` tiles: a thread a ray in blocks of 256 (``mxu``: a warpgroup
+    a block, 64 rays). The sweep and vbcast kernels run a tile's rays as
+    half as many blocks, two rays a thread; the bound of the work does not
+    follow the kernel's own grid."""
+    return tiles * probes.R // (probes.MXU_RAYS if form == "mxu" else probes.BLOCK)
 
 
 def bound_ps_per_pair(form: str, blocks: int) -> float:
@@ -146,49 +139,32 @@ def issue_bound_ps_per_pair(form: str, blocks: int, sm_hz: float,
 
 
 def probe(form: str, t: Dict[str, torch.Tensor], tiles: int, iters: int,
-          sm_hz: float = probes.SM_CLOCK_MAX_HZ, shape=None) -> dict:
+          sm_hz: float = probes.SM_CLOCK_MAX_HZ) -> dict:
     """One form at one shape: ps a pair, Gpairs/s, the shorter launch's
     ms, the FP32-peak bound and the issue bound at the SM clock
-    ``sm_hz`` (``sweep`` and ``vbcast`` in blocks of ``shape``)."""
+    ``sm_hz``."""
     device = t["sph"].device
     n_s = t["sph"].shape[1]
     pairs = probes.R * n_s * tiles
-    per_iter, t_lo = probes.time_pair(launcher(form, t, tiles, shape), iters, device)
-    n_blocks = blocks(form, tiles, shape)
+    per_iter, t_lo = probes.time_pair(launcher(form, t, tiles), iters, device)
+    n_blocks = blocks(form, tiles)
     ps = per_iter / pairs * 1e12
-    r = {"form": form, "tiles": tiles, "blocks": n_blocks, "iters": iters, "spheres": n_s,
-         "ps_per_pair": ps, "gpairs_s": 1e3 / ps if ps > 0 else float("inf"),
-         "ms_per_iter": per_iter * 1e3, "lo_ms": t_lo * 1e3,
-         "bound_ps_per_pair": bound_ps_per_pair(form, n_blocks),
-         "issue_bound_ps_per_pair": issue_bound_ps_per_pair(form, n_blocks, sm_hz, n_s),
-         "sm_hz": sm_hz}
-    if form != "mxu":
-        r["shape"] = list(shape or probes.HIT_SHAPE[form])
-    return r
+    return {"form": form, "tiles": tiles, "blocks": n_blocks, "iters": iters, "spheres": n_s,
+            "ps_per_pair": ps, "gpairs_s": 1e3 / ps if ps > 0 else float("inf"),
+            "ms_per_iter": per_iter * 1e3, "lo_ms": t_lo * 1e3,
+            "bound_ps_per_pair": bound_ps_per_pair(form, n_blocks),
+            "issue_bound_ps_per_pair": issue_bound_ps_per_pair(form, n_blocks, sm_hz, n_s),
+            "sm_hz": sm_hz}
 
 
 def line(r: dict) -> str:
     """A form's reading, as ``tools/mxu_probe.py`` prints it, and its
-    two bounds."""
-    shape = f" of {r['shape'][0]} rays x {r['shape'][1]} threads" if "shape" in r else ""
+    two bounds at the share of the card of ``blocks(form, tiles)``."""
     return (f"{LABELS[r['form']]}: {r['ps_per_pair']:8.2f} ps/pair -> {r['gpairs_s']:7.1f} "
             f"Gpairs/s (lo run {r['lo_ms']:.1f} ms @ {r['iters']} iters) [{r['tiles']} tile(s), "
-            f"{r['blocks']} blocks{shape}, bound {r['bound_ps_per_pair']:.3f} ps/pair, issue "
-            f"bound {r['issue_bound_ps_per_pair']:.3f} at {r['sm_hz'] / 1e6:.0f} MHz]")
-
-
-def loaded_clock(device: torch.device, out) -> float:
-    """The SM clock in Hz with the card under load, after LOAD_LAUNCHES
-    full-card launches of ``vbcast`` (an idle card reads a fraction of
-    it); the line printed names the card and both clocks."""
-    idle = probes.sm_clock()
-    t = inputs(SPHERES, device)
-    for _ in range(LOAD_LAUNCHES):
-        probes.vbcast(t["rows"], t["col"], ITERS, probes.CARD_TILES)
-    torch.cuda.synchronize(device)
-    clock = probes.sm_clock()
-    out(f"{sweep_mod.card()} | SM clock {idle} idle, {clock} under load")
-    return probes.clock_hz(clock)
+            f"bound {r['bound_ps_per_pair']:.3f} ps/pair, issue bound "
+            f"{r['issue_bound_ps_per_pair']:.3f} at {r['sm_hz'] / 1e6:.0f} MHz, both at "
+            f"{r['blocks']} blocks' share]")
 
 
 def agreement(t: Dict[str, torch.Tensor], iters: int = 3, tiles: int = 1) -> dict:
@@ -207,24 +183,28 @@ def agreement(t: Dict[str, torch.Tensor], iters: int = 3, tiles: int = 1) -> dic
     return out
 
 
-def _start(device, what: str, out) -> float:
-    """The SM clock the bounds take: under load on the card, the card's
-    highest on the CPU (whose run reads no device time)."""
-    if device.type == "cuda":
-        if not torch.cuda.is_available():
-            raise RuntimeError(f"{what} needs a CUDA GPU, and torch.cuda.is_available() is False")
-        return loaded_clock(device, out)
-    out("cpu: the plain PyTorch versions on the host clock (no device time)")
-    return probes.SM_CLOCK_MAX_HZ
-
-
 def run(device="cuda", tiles=(1, probes.CARD_TILES), iters: Optional[int] = None,
         n_spheres: int = SPHERES, out=print) -> List[dict]:
     """Every form at every shape of ``tiles``, one printed line each, then
     ``mxu``'s agreement; returns the readings. ``tiles``, ``iters`` and
-    ``n_spheres`` shrink the run for the plain versions on the CPU."""
+    ``n_spheres`` shrink the run for the plain versions on the CPU. The
+    issue bound takes the SM clock read under load, after full-card
+    launches of ``vbcast``; on the CPU the card's highest."""
     device = torch.device(device)
-    sm_hz = _start(device, "mxu_probe", out)
+    sm_hz = probes.SM_CLOCK_MAX_HZ
+    if device.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError("mxu_probe needs a CUDA GPU, and torch.cuda.is_available() "
+                               "is False")
+        t = inputs(SPHERES, device)
+        idle, clock = probes.loaded_clock(
+            lambda: probes.vbcast(t["rows"], t["col"], ITERS, probes.CARD_TILES), device)
+        sm_hz = probes.clock_hz(clock)
+        out(f"{sweep_mod.card()} | SM clock {idle} idle, {clock} under load")
+        for form, (regs, spill) in sorted(probes.hit_registers().items()):
+            out(f"{form}_kernel: {regs} registers, {spill} B spill")
+    else:
+        out("cpu: the plain PyTorch versions on the host clock (no device time)")
     iters = int(iters or ITERS)
     t = inputs(n_spheres, device)
     out(f"R={probes.R} rays x S={n_spheres} spheres = {probes.R * n_spheres} pairs/iter a tile, "
@@ -241,46 +221,6 @@ def run(device="cuda", tiles=(1, probes.CARD_TILES), iters: Optional[int] = None
         out(f"mxu vs {name}: winner agreement {a['winner_agreement']:.6f}, max |t err| on "
             f"agreeing rays {a['max_t_err']}")
     readings.append({"form": "mxu", "agreement": agree})
-    if device.type == "cuda":
-        out(f"SM clock after: {probes.sm_clock()}")
-    return readings
-
-
-def shapes(device="cuda", spheres=(SPHERES, 48), tiles=(probes.CARD_TILES, 1),
-           iters: Optional[int] = None, out=print) -> List[dict]:
-    """``sweep`` and ``vbcast`` at every shape of ``probes.HIT_SHAPES``
-    (rays a thread, threads a block), each first held bitwise to its plain
-    version at 3 trips on ``probes.tie_hit_inputs``, then timed on
-    ``hit_inputs``: the shapes in turns, forward then back, at each S of
-    ``spheres`` and each count of ``tiles``. One line a reading, after the
-    registers and spill bytes of every instantiation (the build's
-    ``-Xptxas -v`` report; none on the CPU)."""
-    device = torch.device(device)
-    sm_hz = _start(device, "mxu_probe.shapes", out)
-    if device.type == "cuda":
-        for (form, rays, threads), (regs, spill) in sorted(probes.hit_registers().items()):
-            out(f"{form}_kernel<{rays}, {threads}>: {regs} registers, {spill} B spill")
-    iters = int(iters or ITERS)
-    readings = []
-    for n_s in spheres:
-        t = inputs(n_s, device)
-        ties = {k: torch.from_numpy(v).to(device) for k, v in probes.tie_hit_inputs(n_s).items()}
-        for shape in probes.HIT_SHAPES:
-            for n_tiles in tiles:
-                if not (torch.equal(probes.sweep_at(shape, ties["sph"], 3, n_tiles),
-                                    probes.sweep_plain(ties["sph"], 3, n_tiles))
-                        and torch.equal(probes.vbcast_at(shape, ties["rows"], ties["col"], 3,
-                                                         n_tiles),
-                                        probes.vbcast_plain(ties["rows"], ties["col"], 3,
-                                                            n_tiles))):
-                    raise AssertionError(f"shape {shape} at S = {n_s}, {n_tiles} tiles is not "
-                                         f"bitwise the plain versions")
-        for n_tiles in tiles:
-            for shape in probes.HIT_SHAPES + probes.HIT_SHAPES[::-1]:
-                for form in ("sweep", "vbcast"):
-                    it = max(1, iters // 4) if form == "sweep" else iters
-                    readings.append(probe(form, t, n_tiles, it, sm_hz, shape))
-                    out(line(readings[-1]))
     if device.type == "cuda":
         out(f"SM clock after: {probes.sm_clock()}")
     return readings
