@@ -16,15 +16,21 @@ CUDA events. What each probe really measures:
 * ``empty-loop``: one dependent FP32 add of a run-time zero and the loop's
   own compare and branch (with no effect at all the compiler deletes the
   loop, and the probe would time nothing);
-* ``smem-16reads``, ``smem-32reads``: a volatile shared-memory load of one
-  word by every thread (a broadcast) and a dependent add each, then one
-  multiply;
+* ``smem-16reads``, ``smem-32reads``: 16 or 32 dependent adds, each of
+  one scalar of the launch's table read straight from the constant bank
+  (the table is a kernel parameter, the counterpart of the tool's scalar
+  prefetch into SMEM), then one multiply: the chain, with a read a trip
+  and no load instruction;
 * ``any+cond-gate-warp``, ``-block``: a vote and a branch around one
   multiply: ``__any_sync`` over a warp, ``__syncthreads_or`` over the
   block of 256 threads;
 * ``hit-sweep-16sph`` and ``-merged``: the sphere test of the trace
-  kernels' sweep on 16 spheres read from shared memory, with a running
-  minimum, or with strict < and 11 record selects;
+  kernels' sweep on 16 spheres read from the constant bank, with a running
+  minimum, or with strict < and the winner's 11 record values (carried as
+  an index, gathered once a trip from shared memory); rooted on
+  ``sqrtf``'s fast path alone, a lane whose trip meets a discriminant off
+  its range (a graze's +0) taking that trip and the rest with IEEE
+  ``sqrtf``;
 * ``carry-1-baseline``: one multiply and one add.
 
 Two shapes: one tile (8 blocks of 256 threads on 8 of the card's 132 SMs:
@@ -39,11 +45,11 @@ from __future__ import annotations
 
 import argparse
 import sys
-from typing import List, Optional
+from typing import Dict, List, Optional
 
 import torch
 
-from myraytracer_tpu_torch import sweep
+from myraytracer_tpu_torch import mxu_probe, sweep
 from myraytracer_tpu_torch.kernels import probes
 
 # Trips of the shorter launch: some milliseconds a launch on an H100.
@@ -61,17 +67,31 @@ BASE_ITERS = {
 }
 
 
+def bound_terms(name: str, tiles: int, sm_hz: float) -> Dict[str, float]:
+    """The three least ns a trip of probe ``name`` on ``tiles`` tiles:
+    its FP32 operations over the peak this grid can reach
+    (``"operations"``, the contract's bound); its FP32 instructions
+    (``MicroBody.issues``, one an operation under -fmad=false) at
+    ``mxu_probe.SM_LANES`` a cycle on each SM the grid occupies at ``sm_hz``
+    (``"issue"``); and its longest dependent chain at
+    ``probes.FP32_LATENCY_CYCLES`` a link at ``sm_hz`` (``"latency"``): a
+    lane's chain cannot finish sooner however few operations it holds."""
+    body = probes.MICRO_BODIES[name]
+    share = probes.fp32_peak_share(tiles * probes.R // probes.BLOCK)
+    lanes = probes.R * tiles
+    return {
+        "operations": body.flops * lanes / (probes.PEAK_FP32 * share) * 1e9,
+        "issue": body.issues * lanes / (mxu_probe.SM_LANES * sm_hz * probes.SMS * share) * 1e9,
+        "latency": body.chain * probes.FP32_LATENCY_CYCLES / sm_hz * 1e9,
+    }
+
+
 def bound_ns_per_iter(name: str, tiles: int, sm_hz: float):
     """The least ns a trip of probe ``name`` can take on ``tiles`` tiles,
-    and what bounds it: the larger of its FP32 operations over the peak
-    this grid can reach (``"operations"``) and its longest dependent chain
-    at ``probes.FP32_LATENCY_CYCLES`` a link at ``sm_hz`` (``"latency"``):
-    a lane's chain cannot finish sooner however few operations it holds."""
-    body = probes.MICRO_BODIES[name]
-    peak = probes.PEAK_FP32 * probes.fp32_peak_share(tiles * probes.R // probes.BLOCK)
-    ops = body.flops * probes.R * tiles / peak * 1e9
-    lat = body.chain * probes.FP32_LATENCY_CYCLES / sm_hz * 1e9
-    return (ops, "operations") if ops >= lat else (lat, "latency")
+    and what bounds it: the largest of ``bound_terms``."""
+    terms = bound_terms(name, tiles, sm_hz)
+    by = max(terms, key=terms.get)
+    return terms[by], by
 
 
 def probe(name: str, tiles: int, device: torch.device, iters: Optional[int] = None,
@@ -90,6 +110,7 @@ def probe(name: str, tiles: int, device: torch.device, iters: Optional[int] = No
         "ns_per_op": per_iter * 1e9 / body.ops if body.ops else None,
         "flops_per_iter": body.flops * probes.R * tiles, "chain": body.chain,
         "bound_ns_per_iter": bound, "bound_by": by, "sm_hz": sm_hz,
+        "issues_per_iter": body.issues, "bounds_ns_per_iter": bound_terms(name, tiles, sm_hz),
     }
 
 
@@ -98,8 +119,9 @@ def line(r: dict) -> str:
     msg = f"{r['probe']}: {r['ns_per_iter']:.1f} ns/iter (fixed {r['fixed_ms']:.1f} ms)"
     if r["ns_per_op"] is not None:
         msg += f", {r['ns_per_op']:.2f} ns/op"
+    terms = ", ".join(f"{k} {v:.3f}" for k, v in r["bounds_ns_per_iter"].items())
     return msg + (f" [{r['tiles']} tile(s), bound {r['bound_ns_per_iter']:.3f} ns/iter by "
-                  f"{r['bound_by']}]")
+                  f"{r['bound_by']} ({terms})]")
 
 
 def run(device="cuda", tiles=(1, probes.CARD_TILES), iters: Optional[int] = None,
