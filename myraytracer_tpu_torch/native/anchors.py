@@ -87,26 +87,31 @@ def cuda_rate(world: api.World) -> dict:
     return {"cuda_ms": ms, "cuda_segs": segs, "cuda_mrays": segs / med / 1e3}
 
 
-def cpu_rate(world: api.World) -> dict:
-    """The C++ renderer's Mrays/s a core on ``world`` (module docstring)."""
+def cpu_rate(world: api.World, width: int = WIDTH, height: int = HEIGHT, spp: int = CPU_SPP,
+             depth: int = DEPTH, reps: int = REPS, threads: int = 0) -> dict:
+    """The C++ renderer's Mrays/s a core on ``world`` (module docstring):
+    ``reps`` frames on ``threads`` threads (0: ``host_cores()``), rep ``i``
+    from sample ``i``, each timed alone; the rate a core from the median
+    time, and each rep's Mrays/s on all its threads."""
     from myraytracer_tpu_torch.core import rng as crng
     from myraytracer_tpu_torch.render.camera import pack_camera
 
-    threads = cpu_backend.host_cores()
-    render = cpu_backend.make_cpu_factory(world)(world.camera, WIDTH, HEIGHT, CPU_SPP, DEPTH)
+    threads = threads or cpu_backend.host_cores()
+    render = cpu_backend.make_cpu_factory(world, threads)(world.camera, width, height, spp, depth)
 
     class Scene:
-        cam = torch.from_numpy(pack_camera(world.camera, WIDTH, HEIGHT))
+        cam = torch.from_numpy(pack_camera(world.camera, width, height))
 
-    secs, segs = [], 0.0
-    for i in range(REPS):
+    secs, each = [], []
+    for i in range(reps):
         t0 = time.perf_counter()
         _, s = render(Scene, crng.key_from_seed(0), i)
         secs.append(time.perf_counter() - t0)
-        segs = float(s)
+        each.append(float(s) / secs[-1] / 1e6)
+    segs = float(s)
     med = statistics.median(secs)
     return {"cpu_s": secs, "cpu_segs": segs, "cpu_threads": threads,
-            "cpu_mrays_per_core": segs / med / 1e6 / threads}
+            "cpu_mrays_per_core": segs / med / 1e6 / threads, "cpu_mrays_each": each}
 
 
 def main(argv=None) -> int:

@@ -204,9 +204,10 @@ def frame_seed(key, sample_start: int) -> int:
     return (seed64 ^ (int(sample_start) * 0x9E3779B97F4A7C15)) & ((1 << 64) - 1)
 
 
-def make_cpu_factory(world: api.World):
+def make_cpu_factory(world: api.World, threads: int = 0):
     """Renderer factory over ``world`` with the session factory signature
-    ``factory(cam, width, height, spp, depth, **render_kwargs)``.
+    ``factory(cam, width, height, spp, depth, **render_kwargs)``; a frame
+    runs on ``threads`` threads (0: ``cpu_threads()``).
 
     The renderer is ``fn(scene, key, sample_start) -> (img, segs)``, as the
     other backends' are: ``img`` the [H, W, 3] f32 per-pixel mean and
@@ -254,7 +255,7 @@ def make_cpu_factory(world: api.World):
             raise ValueError("backend cpu needs a general (lookfrom/lookat) camera")
         native_scene = _CpuScene(world)
         lib = native_scene._lib
-        threads = cpu_threads()
+        n_threads = threads or cpu_threads()
 
         def render(scene, key, sample_start):
             cam_ptr, cam19 = None, None
@@ -267,7 +268,7 @@ def make_cpu_factory(world: api.World):
             segs = ctypes.c_double(0.0)
             rc = lib.mrt_cpu_render(
                 native_scene._handle, width, height, samples_per_frame, ray_depth,
-                frame_seed(key, sample_start), t_min, t_max, cam_ptr, threads, out,
+                frame_seed(key, sample_start), t_min, t_max, cam_ptr, n_threads, out,
                 ctypes.byref(segs),
             )
             if rc != 0:

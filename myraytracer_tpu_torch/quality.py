@@ -6,14 +6,21 @@ reference and turns RMSE ratios into sample counts with the Monte Carlo
 law RMSE ~ 1/sqrt(n): these are the JAX tools' formulas
 (``tools/adaptive_bench.py``, ``tools/qmc_bench.py``, ``tools/rr_bench.py``,
 ``tools/denoise_bench.py``), and the renders they score, built as a
-session builds them.
+session builds them. The measurement tools (``configs``, ``stream``,
+``ladder``, ``meshscale``, ``cpu_mesh_baseline``, ``sort_probe``,
+``orbit``) share the rest: the device line each prints first, the check
+that a card is there, the host read that forces an image, and the guard
+that refuses host syncs in a dispatch loop.
 """
 
 from __future__ import annotations
 
+import contextlib
+import sys
 import time
 
 import numpy as np
+import torch
 
 from myraytracer_tpu_torch.config import RenderConfig
 from myraytracer_tpu_torch.core import rng as crng
@@ -104,3 +111,47 @@ def frame(render, scene, seed: int, sample_base: int = 0):
     img, segs = render(scene, crng.key_from_seed(seed), sample_base)
     out = img.cpu().numpy()
     return out, float(segs), time.perf_counter() - t0
+
+
+def device_line(backend: str) -> str:
+    """A tool's first line: the card's name and power limit as nvidia-smi
+    gives them (``sweep.card``) on ``cuda``, else that the plain version
+    runs on the CPU."""
+    if backend == "cuda":
+        from myraytracer_tpu_torch.sweep import card
+
+        return card()
+    return "cpu: the plain PyTorch version"
+
+
+def card_missing(tool: str, backend: str = "cuda") -> bool:
+    """Whether ``backend`` needs a CUDA GPU and there is none; if so, says
+    it on stderr (a tool then exits non-zero with nothing on stdout)."""
+    if backend == "cuda" and not torch.cuda.is_available():
+        print(f"{tool}: no CUDA GPU (torch.cuda.is_available() is False)", file=sys.stderr)
+        return True
+    return False
+
+
+def force(img: torch.Tensor) -> np.ndarray:
+    """Wait for ``img`` by reading its last four values to the host: a tiny
+    transfer, as the JAX tools force a frame."""
+    return img.reshape(-1)[-4:].cpu().numpy()
+
+
+@contextlib.contextmanager
+def no_host_sync(backend: str):
+    """On ``cuda``, a block in which a call that waits for the card raises
+    (``torch.cuda.set_sync_debug_mode("error")``, which torch calls a
+    prototype that may miss some syncs): a dispatch loop that synced the
+    host would time one frame after another, not the pipelined loop. A
+    no-op on the CPU."""
+    if backend != "cuda":
+        yield
+        return
+    before = torch.cuda.get_sync_debug_mode()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        yield
+    finally:
+        torch.cuda.set_sync_debug_mode(before)

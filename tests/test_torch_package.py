@@ -59,6 +59,19 @@ c = make_session(obj, RenderConfig(width=8, height=4, ray_depth=3, backend="cpu"
 assert float(c.run(1).mean()) > 0 and c.routing_prediction > 0
 from myraytracer_tpu_torch import (adaptive_bench, bench, denoise_bench, goldens, qmc_bench,
                                    quality, rr_bench)
+from myraytracer_tpu_torch import (configs, cpu_mesh_baseline, ladder, meshscale, orbit,
+                                   sort_probe, stream)
+assert sort_probe.keys_of(sort_probe.initial_state(8, 1, "cpu")).shape == (8,)
+assert len(orbit.cameras(get_scene("final").camera, 3)) == 3
+# Every module of the package, walked (the entry point's __main__ aside).
+import importlib, pkgutil
+walked = [m.name for m in pkgutil.walk_packages(myraytracer_tpu_torch.__path__,
+                                                "myraytracer_tpu_torch.")
+          if not m.name.endswith("__main__")]
+for name in walked:
+    importlib.import_module(name)
+tools = ("configs", "stream", "ladder", "meshscale", "cpu_mesh_baseline", "sort_probe", "orbit")
+assert all(f"myraytracer_tpu_torch.{t}" in walked for t in tools), walked
 from myraytracer_tpu_torch.utils import hwgolden
 from myraytracer_tpu_torch.render.session import render
 from myraytracer_tpu_torch.render.denoise import make_denoiser
