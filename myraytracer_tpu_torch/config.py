@@ -38,6 +38,11 @@ CUDA_FRAME_WINDOW = 16
 CUDA_ADAPTIVE_WINDOW = 128
 CUDA_ADAPTIVE_CAP = 16
 
+# The kernel's components that ``KernelConfig.ABLATE`` can run twice, in
+# the order of their bits in ``csrc/trace.cu`` (MRT_ABLATE_*): the names of
+# the JAX package's ``tools/ablate.py``.
+ABLATE_COMPONENTS = ("hit", "gates", "fetch", "rng", "samplers", "scatter", "regen")
+
 
 @dataclasses.dataclass(frozen=True)
 class RenderConfig:
@@ -178,6 +183,10 @@ class KernelConfig:
       may stage its tables in; None is the card's opt-in limit. A smaller
       value sends tables to global memory (``kernels.trace.stage_plan``), so
       that a small scene can take every staging route.
+    * ``ABLATE``: names of ``ABLATE_COMPONENTS`` that the CUDA kernel runs a
+      second time, inert (``python -m myraytracer_tpu_torch.ablate``): a
+      separate build of ``csrc/trace.cu``, whose image and segments are
+      the default build's bit for bit. The plain version ignores it.
     """
 
     UNROLL_MAX: int = 64
@@ -188,6 +197,14 @@ class KernelConfig:
     SUPER_MIN: int = 24
     FORCE_CULL: Optional[bool] = None
     SMEM_LIMIT: Optional[int] = None
+    ABLATE: Tuple[str, ...] = ()
+
+    def __post_init__(self):
+        object.__setattr__(self, "ABLATE", tuple(self.ABLATE))
+        unknown = [c for c in self.ABLATE if c not in ABLATE_COMPONENTS]
+        if unknown:
+            raise ValueError(f"ABLATE: unknown components {unknown}; the kernel's are "
+                             f"{ABLATE_COMPONENTS}")
 
     def cull_spheres(self, n_spheres: int) -> bool:
         """Whether a padded sphere table of ``n_spheres`` slots is swept

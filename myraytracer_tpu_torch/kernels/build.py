@@ -3,10 +3,12 @@
 Every source is compiled the same way: by ``nvcc`` for ``sm_90a``, from the
 repository's file and nothing else, at first use, into the shared library
 ``build/kernels/<stem>_<hash>.so`` with a plain C interface, loaded with
-``ctypes``. The hash covers the source and the flags, so an edit rebuilds;
-``nvcc``'s ``-Xptxas -v`` report (registers, shared memory, spills) is kept
-beside the library as ``<stem>_<hash>.log``. ``build_all`` compiles several
-sources at once, one ``nvcc`` process each.
+``ctypes``. The hash covers the source and the flags, so an edit rebuilds
+and one source built with other flags (``-DMRT_ABLATE=...``) is a library
+of its own; ``nvcc``'s ``-Xptxas -v`` report (registers, shared memory,
+spills) is kept beside the library as ``<stem>_<hash>.log``. ``build_many``
+compiles several (source, flags) builds at once, one ``nvcc`` process
+each.
 
 The C++ host sources (``csrc/native/*.cpp``: the BVH builder, the OBJ
 loader and the CPU renderer) follow the same rule with the host compiler:
@@ -28,7 +30,7 @@ import pathlib
 import shutil
 import subprocess
 import tempfile
-from typing import Dict, Iterable, List, Sequence
+from typing import Dict, Iterable, List, Sequence, Tuple
 
 CSRC = pathlib.Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[2] / "build" / "kernels"
@@ -135,33 +137,33 @@ def build_host(name: str, sources: Sequence[pathlib.Path],
     return out
 
 
-def build_all(sources: Iterable[pathlib.Path],
-              flags: Sequence[str] = NVCC_FLAGS) -> Dict[pathlib.Path, pathlib.Path]:
-    """Compile each of ``sources`` unless it is built already, all ``nvcc``
-    processes started together; returns each source's library path.
-    ``nvcc``'s report goes to the ``.log`` beside each library; a failed
-    build raises with its errors."""
-    outs = {src: library_path(src, flags) for src in sources}
-    todo = [src for src, out in outs.items() if not out.exists()]
+def build_many(jobs: Iterable[Tuple[pathlib.Path, Sequence[str]]]) -> List[pathlib.Path]:
+    """Compile each (source, flags) build unless it is built already, all
+    ``nvcc`` processes started together; returns each build's library path,
+    in order. ``nvcc``'s report goes to the ``.log`` beside each library; a
+    failed build raises with its errors."""
+    jobs = [(src, tuple(flags)) for src, flags in jobs]
+    outs = [library_path(src, flags) for src, flags in jobs]
+    todo = {out: job for out, job in zip(outs, jobs) if not out.exists()}
     if not todo:
         return outs
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     nvcc = find_nvcc()
     with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
         procs = []
-        for src in todo:
-            part = pathlib.Path(tmp) / outs[src].name
-            procs.append((src, part, subprocess.Popen(
+        for out, (src, flags) in todo.items():
+            part = pathlib.Path(tmp) / out.name
+            procs.append((src, out, part, subprocess.Popen(
                 nvcc_command(nvcc, src, part, flags),
                 stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
         failed = []
-        for src, part, proc in procs:
+        for src, out, part, proc in procs:
             stdout, stderr = proc.communicate()
-            outs[src].with_suffix(".log").write_text(stdout + stderr)
+            out.with_suffix(".log").write_text(stdout + stderr)
             if proc.returncode != 0:
                 failed.append(f"{src.name}: nvcc failed ({proc.returncode}):\n{stderr}")
             else:
-                os.replace(part, outs[src])  # atomic: never half a file
+                os.replace(part, out)  # atomic: never half a file
         if failed:
             raise RuntimeError("\n".join(failed))
     return outs
@@ -169,14 +171,43 @@ def build_all(sources: Iterable[pathlib.Path],
 
 def build(source: pathlib.Path, flags: Sequence[str] = NVCC_FLAGS) -> pathlib.Path:
     """Compile ``source`` unless it is built already; its library's path."""
-    return build_all([source], flags)[source]
+    return build_many([(source, flags)])[0]
 
 
-_LIBS: Dict[pathlib.Path, ctypes.CDLL] = {}
+def entry_registers(log: str, entry: str) -> Dict[str, Tuple[int, int]]:
+    """Registers and spill bytes (stores and loads) of the entry functions
+    whose mangled names match ``entry``, keyed by its first group, from an
+    ``-Xptxas -v`` report."""
+    import re
+
+    out, key, spill = {}, None, 0
+    for ln in log.splitlines():
+        if "Compiling entry function" in ln:
+            m = re.search(entry, ln)
+            key = m.group(1) if m else None
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", ln)
+        if m:
+            spill = int(m.group(1)) + int(m.group(2))
+        m = re.search(r"Used (\d+) registers", ln)
+        if m and key:
+            out[key] = (int(m.group(1)), spill)
+            key = None
+    return out
+
+
+def sass(library: pathlib.Path) -> str:
+    """The SASS of a built library (``cuobjdump -sass``, beside ``nvcc``)."""
+    cuobjdump = pathlib.Path(find_nvcc()).parent / "cuobjdump"
+    return subprocess.run([str(cuobjdump), "-sass", str(library)], capture_output=True,
+                          text=True, timeout=300, check=True).stdout
+
+
+_LIBS: Dict[Tuple[pathlib.Path, Tuple[str, ...]], ctypes.CDLL] = {}
 
 
 class Kernel:
-    """One entry point of a source's library and its launch count.
+    """One entry point of a source's library, built with ``flags``, and its
+    launch count.
 
     ``launches`` goes up by one at each launch of the kernel and nowhere
     else; a run can reset it and read it to show that it went through the
@@ -184,18 +215,21 @@ class Kernel:
     that is refused raises.
     """
 
-    def __init__(self, source: pathlib.Path, symbol: str, argtypes):
+    def __init__(self, source: pathlib.Path, symbol: str, argtypes,
+                 flags: Sequence[str] = NVCC_FLAGS):
         self.source = source
         self.symbol = symbol
         self.argtypes = argtypes
+        self.flags = tuple(flags)
         self.launches = 0
         self._fn = None
 
     def load(self):
         if self._fn is None:
-            if self.source not in _LIBS:  # one library a source, loaded once
-                _LIBS[self.source] = ctypes.CDLL(str(build(self.source)))
-            fn = getattr(_LIBS[self.source], self.symbol)
+            lib = (self.source, self.flags)
+            if lib not in _LIBS:  # one library a source and flags, loaded once
+                _LIBS[lib] = ctypes.CDLL(str(build(self.source, self.flags)))
+            fn = getattr(_LIBS[lib], self.symbol)
             fn.argtypes = self.argtypes
             fn.restype = ctypes.c_int
             self._fn = fn
