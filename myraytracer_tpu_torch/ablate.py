@@ -79,7 +79,7 @@ def settings(env) -> dict:
 def registers(components=()) -> tuple:
     """(registers, spill bytes) of final's kernel variant in the build that
     runs ``components`` twice."""
-    (lib,) = trace.build_ablated([components])
+    (lib,) = trace.build_variants([KernelConfig(ABLATE=components)])
     return trace.variant_registers(lib.with_suffix(".log").read_text())[VARIANT]
 
 
@@ -90,7 +90,7 @@ def run(s: dict, out=print) -> dict:
     mats = tuple(sorted({sp.material.type_id for sp in world.spheres}))
     key = crng.key_from_seed(0)
     t0 = time.perf_counter()
-    trace.build_ablated([()] + [(c,) for c in s["components"]])
+    trace.build_variants([None] + [KernelConfig(ABLATE=(c,)) for c in s["components"]])
     build_s = time.perf_counter() - t0
 
     def measure(ablate: tuple) -> dict:

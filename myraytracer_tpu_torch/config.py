@@ -42,6 +42,10 @@ CUDA_ADAPTIVE_CAP = 16
 # the order of their bits in ``csrc/trace.cu`` (MRT_ABLATE_*): the names of
 # the JAX package's ``tools/ablate.py``.
 ABLATE_COMPONENTS = ("hit", "gates", "fetch", "rng", "samplers", "scatter", "regen")
+# KernelConfig.SWEEP_WIDTH's widths (the JAX tool's w1-w16) and TILE_W's
+# tile widths (a warp's 32 lanes as TILE_W x 32/TILE_W pixels).
+SWEEP_WIDTHS = (1, 2, 4, 8, 16)
+TILE_WIDTHS = (8, 16, 32)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -161,14 +165,14 @@ class RenderConfig:
 
 @dataclasses.dataclass(frozen=True)
 class KernelConfig:
-    """The closest-hit sweep's gate settings, passed to the kernel
-    factories (``kernels/trace.py``) as the JAX package's ``config=``.
+    """The closest-hit sweep's settings, passed to the kernel factories
+    (``kernels/trace.py``) as the JAX package's ``config=``.
 
-    The names and defaults are those of the JAX ``KernelConfig``
-    (``myraytracer_tpu/kernels/trace.py:188-257``) for the fields the CUDA
-    kernel reads. ``compile_scene``'s kd partition aligns sphere groups to
+    The names are those of the JAX ``KernelConfig``
+    (``myraytracer_tpu/kernels/trace.py:188-257``). The gate fields keep
+    its defaults: ``compile_scene``'s kd partition aligns sphere groups to
     ``CULL_CHUNK`` = 48 and triangle groups to ``TRI_CHUNK_AUTO``, and that
-    order decides equal-t ties, so the defaults stay the JAX package's.
+    order decides equal-t ties.
 
     * ``UNROLL_MAX``: tables at most this wide (after padding) are swept
       with no gates. On the CUDA kernel it unrolls nothing.
@@ -184,9 +188,49 @@ class KernelConfig:
       value sends tables to global memory (``kernels.trace.stage_plan``), so
       that a small scene can take every staging route.
     * ``ABLATE``: names of ``ABLATE_COMPONENTS`` that the CUDA kernel runs a
-      second time, inert (``python -m myraytracer_tpu_torch.ablate``): a
-      separate build of ``csrc/trace.cu``, whose image and segments are
-      the default build's bit for bit. The plain version ignores it.
+      second time, inert (``python -m myraytracer_tpu_torch.ablate``). The
+      plain version ignores it.
+
+    The sweep's forms (``python -m myraytracer_tpu_torch.sweep --variants``
+    times them). Five defaults are the forms ``csrc/trace.cu`` computes
+    without build options, not the JAX defaults; each pair computes the
+    same winners:
+
+    * ``SQRT_GUARD`` True (JAX False): the root of the clamped discriminant
+      and a ``disc >= 0`` term; False roots ``disc`` itself, and a miss's
+      NaN fails every window compare.
+    * ``WINDOW_FUSE`` False (JAX True): both window bounds spelled out;
+      True tests the near root against ``t_min`` only and leaves the upper
+      bound to ``t < t_best``, since ``t_best <= t_max`` always.
+    * ``SWEEP_WIDTH`` 1 (JAX 4): W candidates (t, index), reduced pairwise
+      with strict ``<``, the earlier on the left, merge into the carry
+      once; the lowest index still wins ties. 1, 2, 4, 8 or 16.
+    * ``LANE_GATE`` True (JAX False): each lane sweeps a chunk only if its
+      own slab test passes; False: the warp enters a chunk, or an outer
+      box, when any of its lanes does, and every lane sweeps it (JAX's
+      ``jnp.any(enter)``). Not exact: the eps-padded slab test is
+      conservative only up to rounding, so a lane may take a grazing hit
+      that its own test skips, and which lanes share a warp is the tile
+      queue's. The same winners on final; on an H100 it moved 43 of 3.29 M
+      segments of spheres:100 at 1200x800, spp 1 (PERF.md).
+    * ``MERGED_FETCH`` False (JAX True): the sweep carries (t, index) and
+      the winner's record is read after it; True: the sweep carries the
+      winner's record rows.
+
+    ``SQRT_RSQRT`` (False, as in JAX) is a diagnostic: the root as ``disc *
+    rsqrt(disc)``, which differs in ulps and drops exact tangents; it keeps
+    ``SQRT_GUARD``'s ``disc >= 0`` term, and the plain version computes it
+    too. ``STATIC_CAM`` (False, as in JAX): the packed camera travels by
+    value in the launch's parameters, the construction camera's host copy
+    taken once by the renderer, in place of the packed device operand.
+    ``TILE_W`` (the port's own; 16): the width of a warp's tile of
+    pixels, ``32 / TILE_W`` rows high: 8, 16 or 32; the counterpart of
+    JAX's ``DEFAULT_TILE_ROWS`` and ``BLOCK_W``. Every option but
+    ``SMEM_LIMIT`` that is not its default makes a separate build of
+    ``csrc/trace.cu`` (``kernels.trace.kernel_flags``); every one but
+    ``SQRT_RSQRT`` and ``LANE_GATE`` False leaves the image and the
+    segments bit for bit those of the default build (``bitwise``), and the
+    plain version ignores every one but ``SQRT_RSQRT``.
     """
 
     UNROLL_MAX: int = 64
@@ -198,6 +242,14 @@ class KernelConfig:
     FORCE_CULL: Optional[bool] = None
     SMEM_LIMIT: Optional[int] = None
     ABLATE: Tuple[str, ...] = ()
+    SQRT_GUARD: bool = True
+    WINDOW_FUSE: bool = False
+    SQRT_RSQRT: bool = False
+    SWEEP_WIDTH: int = 1
+    LANE_GATE: bool = True
+    MERGED_FETCH: bool = False
+    STATIC_CAM: bool = False
+    TILE_W: int = 16
 
     def __post_init__(self):
         object.__setattr__(self, "ABLATE", tuple(self.ABLATE))
@@ -205,6 +257,17 @@ class KernelConfig:
         if unknown:
             raise ValueError(f"ABLATE: unknown components {unknown}; the kernel's are "
                              f"{ABLATE_COMPONENTS}")
+        if self.SWEEP_WIDTH not in SWEEP_WIDTHS:
+            raise ValueError(f"SWEEP_WIDTH must be one of {SWEEP_WIDTHS}, got {self.SWEEP_WIDTH}")
+        if self.TILE_W not in TILE_WIDTHS:
+            raise ValueError(f"TILE_W must be one of {TILE_WIDTHS}, got {self.TILE_W}")
+
+    @property
+    def bitwise(self) -> bool:
+        """Whether this config's build renders the default build's image and
+        segments bit for bit: every sweep form but ``SQRT_RSQRT`` and the
+        warp's gate (``LANE_GATE`` False)."""
+        return self.LANE_GATE and not self.SQRT_RSQRT
 
     def cull_spheres(self, n_spheres: int) -> bool:
         """Whether a padded sphere table of ``n_spheres`` slots is swept

@@ -74,6 +74,10 @@ class SweepGates(NamedTuple):
     traabb: torch.Tensor  # [6, tn_chunks]
     tsaabb: Optional[torch.Tensor]  # [6, tn_super], or None
     super_w: int  # SUPER: chunks under one outer box
+    # KernelConfig.SQRT_RSQRT: the spheres' root as disc * rsqrt(disc). The
+    # config's other sweep forms compute the same winners, so the plain
+    # version has no counterpart of them.
+    sqrt_rsqrt: bool = False
 
 
 class Hit(NamedTuple):
@@ -104,16 +108,20 @@ def _chunk_size(n_prims: int, n_lanes: int) -> int:
     return max(8, (c // 8) * 8)
 
 
-def _sphere_t(o: V3, d: V3, scene: CompiledScene, sl: slice, t_minf, big):
+def _sphere_t(o: V3, d: V3, scene: CompiledScene, sl: slice, t_minf, big,
+              rsqrt: bool = False):
     """Candidate t of spheres ``sl`` against every lane, [k, lanes];
-    ``big`` (= t_max) where a sphere is missed."""
+    ``big`` (= t_max) where a sphere is missed. ``rsqrt``: the root as
+    ``disc * rsqrt(disc)`` (``KernelConfig.SQRT_RSQRT``; the JAX kernel's
+    ``trace.py:848-852``), the ``disc >= 0`` term kept: ulps apart, and
+    an exact tangent misses."""
     ocx = o.x[None, :] - scene.center.x[sl, None]
     ocy = o.y[None, :] - scene.center.y[sl, None]
     ocz = o.z[None, :] - scene.center.z[sl, None]
     b = ocx * d.x[None, :] + ocy * d.y[None, :] + ocz * d.z[None, :]
     c = ocx * ocx + ocy * ocy + ocz * ocz - scene.radius_sq[sl, None]
     disc = b * b - c
-    sq = torch.sqrt(torch.clamp_min(disc, 0.0))
+    sq = disc * torch.rsqrt(disc) if rsqrt else torch.sqrt(torch.clamp_min(disc, 0.0))
     t1 = -b - sq
     t2 = -b + sq
     t1_ok = (t1 >= t_minf) & (t1 < big)
@@ -232,13 +240,14 @@ def _window(o: V3, t_min: float, t_max: float, t_init=None):
 
 def _sphere_candidates(
     o: V3, d: V3, scene: CompiledScene, t_min: float, t_max: float, t_init=None,
+    rsqrt: bool = False,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(t_best, i_best) over all spheres from the running ``t_init``;
     t_best == t_init (t_max) on a miss."""
     t_minf, big, t_best, i_best = _window(o, t_min, t_max, t_init)
     n = scene.padded_size
     count_work("sphere", n * t_best.shape[0])
-    return _sweep(lambda sl: _sphere_t(o, d, scene, sl, t_minf, big),
+    return _sweep(lambda sl: _sphere_t(o, d, scene, sl, t_minf, big, rsqrt),
                   n, _chunk_size(n, t_best.shape[0]), t_best, i_best)
 
 
@@ -411,7 +420,7 @@ def _sphere_candidates_gated(o: V3, d: V3, scene: CompiledScene, gates: SweepGat
     leaders first and then chunk by chunk behind the gates; equal to the
     CUDA kernel's gated sweep."""
     t_minf, big, t_best, i_best = _window(o, t_min, t_max, t_init)
-    cand = lambda sl: _sphere_t(o, d, scene, sl, t_minf, big)  # noqa: E731
+    cand = lambda sl: _sphere_t(o, d, scene, sl, t_minf, big, gates.sqrt_rsqrt)  # noqa: E731
     count_work("sphere", LEADERS * t_best.shape[0])
     t_best, i_best = _sweep(cand, LEADERS, LEADERS, t_best, i_best)
     t_best, i_best, _ = _gated_candidates(
@@ -439,7 +448,8 @@ def _closest(o: V3, d: V3, scene: CompiledScene, t_min: float, t_max: float,
     if gates is not None and gates.sph_cull:
         ts, is_ = _sphere_candidates_gated(o, d, scene, gates, t_min, t_max, t_init)
     else:
-        ts, is_ = _sphere_candidates(o, d, scene, t_min, t_max, t_init)
+        ts, is_ = _sphere_candidates(o, d, scene, t_min, t_max, t_init,
+                                     gates is not None and gates.sqrt_rsqrt)
     if not scene.has_triangles:
         return ts, is_, None, None
     if gates is not None and gates.tri_cull:

@@ -72,14 +72,14 @@ def test_ablate_rejects_other_names(bad):
 
 
 def test_no_ablation_is_the_default_build():
-    assert ktrace.ablate_flags(()) == kbuild.NVCC_FLAGS
-    assert kbuild.library_path(ktrace.SOURCE, ktrace.ablate_flags(())) == \
+    assert ktrace.kernel_flags(KernelConfig(ABLATE=())) == kbuild.NVCC_FLAGS
+    assert kbuild.library_path(ktrace.SOURCE, ktrace.kernel_flags(KernelConfig())) == \
         kbuild.library_path(ktrace.SOURCE)
-    assert ktrace.kernels_for(()) == (ktrace.KERNEL, ktrace.ADAPTIVE)
+    assert ktrace.kernels_for(KernelConfig()) == (ktrace.KERNEL, ktrace.ADAPTIVE)
     assert ktrace.KERNEL.flags == ktrace.ADAPTIVE.flags == kbuild.NVCC_FLAGS
     scene = tcompile(tpresets.get_scene("three-sphere"))
-    assert ktrace.gate_tables(scene).ablate == ()
-    assert ktrace.gate_tables(scene, KernelConfig(ABLATE=("rng",))).ablate == ("rng",)
+    assert ktrace.gate_tables(scene).config.ABLATE == ()
+    assert ktrace.gate_tables(scene, KernelConfig(ABLATE=("rng",))).config.ABLATE == ("rng",)
 
 
 def test_each_mask_is_a_build_and_kernels_of_its_own():
@@ -89,13 +89,14 @@ def test_each_mask_is_a_build_and_kernels_of_its_own():
     for i, b in enumerate(builds):
         mask = ktrace.ablate_mask(b)
         assert mask == (1 << i if i < len(ABLATE_COMPONENTS) else 127)
-        flags = ktrace.ablate_flags(b)
+        flags = ktrace.kernel_flags(KernelConfig(ABLATE=b))
         assert flags == kbuild.NVCC_FLAGS + (f"-DMRT_ABLATE={mask}",)
         paths.add(kbuild.library_path(ktrace.SOURCE, flags))
-        uniform, adaptive = ktrace.kernels_for(b)
+        uniform, adaptive = ktrace.kernels_for(KernelConfig(ABLATE=b))
         assert uniform.flags == adaptive.flags == flags and uniform.launches == 0
         assert (uniform.symbol, adaptive.symbol) == (ktrace.KERNEL.symbol, ktrace.ADAPTIVE.symbol)
-        assert ktrace.kernels_for(list(reversed(b))) == (uniform, adaptive)  # one pair a mask
+        # one pair a mask
+        assert ktrace.kernels_for(KernelConfig(ABLATE=list(reversed(b)))) == (uniform, adaptive)
         kernels |= {uniform, adaptive}
     assert len(paths) == len(builds) + 1 and len(kernels) == 2 * (len(builds) + 1)
 
@@ -129,12 +130,12 @@ def test_build_many_starts_one_nvcc_a_build(tmp_path, monkeypatch):
     monkeypatch.setattr(kbuild, "BUILD_DIR", tmp_path)
     monkeypatch.setattr(kbuild, "find_nvcc", lambda: "nvcc")
     monkeypatch.setattr(kbuild.subprocess, "Popen", Proc)
-    builds = [(), ("hit",), ABLATE_COMPONENTS]
-    paths = ktrace.build_ablated(builds)
+    builds = [KernelConfig(ABLATE=b) for b in [(), ("hit",), ABLATE_COMPONENTS]]
+    paths = ktrace.build_variants(builds)
     assert len(started) == 3 and [p.parent for p in paths] == [tmp_path] * 3
-    assert [c[1:-3] for c in started] == [list(ktrace.ablate_flags(b)) for b in builds]
+    assert [c[1:-3] for c in started] == [list(ktrace.kernel_flags(b)) for b in builds]
     assert all(p.exists() and p.with_suffix(".log").exists() for p in paths)
-    assert ktrace.build_ablated(builds) == paths and len(started) == 3  # built once
+    assert ktrace.build_variants(builds) == paths and len(started) == 3  # built once
 
 
 def test_registers_and_sass_of_the_variants():
