@@ -5,7 +5,8 @@ function ``threefry2x32(key, (lane_id, draw_id))``, so a frame is
 bit-reproducible for a key whatever the batching or the device, and the
 plain PyTorch integrator, the CUDA kernel (``csrc/trace.cu``) and the JAX
 package all read the same stream. The seed is the threefry key; no
-``torch.Generator`` is involved.
+``torch.Generator`` is involved. The kernels' ``rng_mode="hw"`` reads a
+second stream, Philox-4x32-10 under the same key (``uniform4_hw``).
 
 uint32 words are carried in int64 tensors (or Python ints, for keys and
 scalars): torch has few uint32 ops, so every add, shift and multiply is
@@ -138,6 +139,64 @@ def uniform2(key, lane_id: torch.Tensor, draw_id) -> Tuple[torch.Tensor, torch.T
     """Two independent U[0,1) floats per lane for the given draw slot."""
     b0, b1 = threefry2x32(key, (lane_id, draw_id & M32))
     return _to_unit_f32(b0), _to_unit_f32(b1)
+
+
+# -- The "hw" stream (the kernels' rng_mode="hw") -----------------------------
+#
+# The JAX kernel's rng_mode="hw" draws from the TPU's hardware generator: a
+# stream that is deterministic for a key but is not threefry's. Its
+# counterpart here, and in csrc/trace.cu built with MRT_RNG_HW, is
+# Philox-4x32-10 keyed on the render key itself, with the counter (lane,
+# sample, b + 1, slot >> 1): b is the absolute bounce (-1, so a counter word
+# of 0, for the camera), and a draw at slot s reads words 2*(s & 1) and
+# 2*(s & 1) + 1, so one call covers slots {0, 1} or {2, 3}. The image then
+# depends on (key, pixel, sample) alone, as the threefry stream's does.
+# Russian roulette keeps its threefry page key and QMC its Sobol pairs.
+
+PHILOX_M0 = 0xD2511F53
+PHILOX_M1 = 0xCD9E8D57
+PHILOX_W0 = 0x9E3779B9  # the key's bumps between rounds
+PHILOX_W1 = 0xBB67AE85
+PHILOX_ROUNDS = 10
+
+
+def _mulhilo32(a, c: int):
+    """(high, low) 32 bits of ``a * c`` for u32 ``a`` and a u32 constant
+    ``c``. In int64 the full product can pass 2^63, so ``c`` is split into
+    16-bit halves: ``a * c = 2^16 * (a * c_hi + (a * c_lo >> 16)) + (a *
+    c_lo & 0xFFFF)``, whose terms stay below 2^49, and the low 16 bits
+    cannot carry into the high word."""
+    lo_part = a * (c & 0xFFFF)
+    hi = ((a * (c >> 16) + (lo_part >> 16)) >> 16) & M32
+    return hi, _mul32(a, c)
+
+
+def philox4x32(key, ctr, rounds: int = PHILOX_ROUNDS):
+    """Philox-4x32 (Salmon et al., SC'11; Random123's ``philox4x32``), 10
+    rounds by default.
+
+    ``key`` is a pair and ``ctr`` a 4-tuple of u32 values: Python ints or
+    int64 tensors holding values in [0, 2^32), broadcastable against each
+    other. Returns four u32 values of the broadcast form. Matches the
+    Random123 known-answer vectors and ``csrc/trace.cu philox4x32``.
+    """
+    k0, k1 = key[0] & M32, key[1] & M32
+    c0, c1, c2, c3 = (c & M32 for c in ctr)
+    for r in range(int(rounds)):
+        if r:
+            k0, k1 = (k0 + PHILOX_W0) & M32, (k1 + PHILOX_W1) & M32
+        hi0, lo0 = _mulhilo32(c0, PHILOX_M0)
+        hi1, lo1 = _mulhilo32(c2, PHILOX_M1)
+        c0, c1, c2, c3 = hi1 ^ c1 ^ k0, lo1, hi0 ^ c3 ^ k1, lo0
+    return c0, c1, c2, c3
+
+
+def uniform4_hw(key, lane_id, sample_id, bounce, pair: int):
+    """The four U[0,1) floats of one Philox call of the hw stream: slots
+    ``2 * pair`` and ``2 * pair + 1`` of bounce ``bounce`` (-1: the
+    camera's), two words each."""
+    w = philox4x32(key, (lane_id, sample_id, bounce + 1, pair))
+    return tuple(_to_unit_f32(x) for x in w)
 
 
 def unit_sphere_from_uniforms(u1: torch.Tensor, u2: torch.Tensor) -> V3:

@@ -77,7 +77,7 @@ def adaptive_block_sums(
     scene: CompiledScene, cam: api.Camera, key, width: int, height: int,
     block_ids: torch.Tensor, samp0: torch.Tensor, spp: int, windows: int,
     depth: int, t_min: float = 1e-3, t_max: float = 1e4, sky=None, gates=None,
-    nee_lights=None, qmc: bool = False, rr: int = 0,
+    nee_lights=None, qmc: bool = False, rr: int = 0, rng_mode: str = "threefry",
 ):
     """The plain version of the CUDA adaptive kernel.
 
@@ -87,8 +87,10 @@ def adaptive_block_sums(
     sentinel id (``n_blocks``) and pixels past the image's edge hold zeros.
     Each pixel's sums are ``integrator.pixel_sums``', as the uniform
     renderer's are, behind the kernel's ``gates`` when they are given, with
-    the estimator's modes (``nee_lights``, ``qmc``, ``rr``).
+    the estimator's modes (``nee_lights``, ``qmc``, ``rr``) and the
+    sample stream (``rng_mode``, ``integrator.check_rng_mode``).
     """
+    integrator.check_rng_mode(rng_mode)
     dev = scene.device
     ids = block_ids.to(device=dev, dtype=torch.int64)
     s0 = samp0.to(device=dev, dtype=torch.int64)
@@ -111,7 +113,7 @@ def adaptive_block_sums(
                 scene, ray_gen, ix, iy, start + f * spp, spp, key, width,
                 depth, t_min, t_max, sky=sky,
                 lens_draws=not cam.reference_mode, sample_batch=spp,
-                gates=gates, nee_lights=nee_lights, qmc=qmc, rr=rr,
+                gates=gates, nee_lights=nee_lights, qmc=qmc, rr=rr, rng_mode=rng_mode,
             )
             sums[f, at] = acc.stacked(-1)
             segs[at] += sg
@@ -135,6 +137,7 @@ def make_adaptive_oracle(
     qmc: bool = False,
     rr: int = 0,
     windows: int = 1,
+    rng_mode: str = "threefry",
 ):
     """Plain adaptive block renderer (the oracle; the CPU path).
 
@@ -144,17 +147,20 @@ def make_adaptive_oracle(
     samp0[i] + max_samples)``. ``block_ids`` may hold the sentinel
     ``blocks_x * blocks_y`` (renders nothing). ``windows = F > 1`` renders
     F consecutive max_samples-sample windows per block and returns
-    ``[F, n_sel, BLOCK_H, BLOCK_W, 3]``.
+    ``[F, n_sel, BLOCK_H, BLOCK_W, 3]``. ``rng_mode`` selects the sample
+    stream, as for ``integrator.make_block_renderer``.
     """
     # The oracle renders whatever id list it is handed; emission and the
     # texture rows are read off the scene.
     del n_sel, material_set, texture_set
+    integrator.check_rng_mode(rng_mode)
     spp, windows = int(max_samples), int(windows)
 
     def render(scene: CompiledScene, key, block_ids, samp0):
         sums, segs = adaptive_block_sums(
             scene, cam, key, width, height, block_ids, samp0, spp, windows,
             ray_depth, t_min, t_max, sky, nee_lights=nee_lights, qmc=qmc, rr=rr,
+            rng_mode=rng_mode,
         )
         return (sums if windows > 1 else sums[0]), segs.sum(dtype=torch.float64)
 
@@ -261,6 +267,16 @@ class AdaptiveSession:
     ``torch`` the plain oracle on the CPU; ``cpu`` raises. ``shard="tiles"``
     splits the block grid into stripes over ``mesh`` (default
     ``sharding.default_mesh``; module docstring).
+
+    ``renderer_factory(**kw)``, where given, builds the block renderer from
+    the keywords the backend's own factory receives (``cam``, ``width``,
+    ``height``, ``n_sel``, ``max_samples``, ``ray_depth``, ``windows``,
+    ``t_min``, ``t_max``, ``material_set``, ``sky``, ``nee_lights``,
+    ``texture_set``, ``qmc``, ``rr``). ``interpret`` runs the kernel's plain
+    version (``kernels.trace.trace_adaptive_plain``, the kernel's gates
+    included) on the session's device in its place: the counterpart of the
+    JAX session's Pallas interpret mode. The parameters are the JAX
+    session's, in its order.
     """
 
     def __init__(
@@ -268,6 +284,8 @@ class AdaptiveSession:
         world: api.World,
         config: RenderConfig = RenderConfig(),
         n_sel: int = 0,
+        renderer_factory=None,
+        interpret: bool = False,
         mesh=None,
     ):
         if config.shard not in ("none", "tiles"):
@@ -319,12 +337,14 @@ class AdaptiveSession:
         self.key = crng.key_from_seed(config.seed)
 
         self.windows = config.resolve_adaptive_windows(self.backend_resolved)
-        if self.backend_resolved == "cuda":
-            from myraytracer_tpu_torch.kernels.trace import (
-                make_adaptive_renderer as renderer_factory,
-            )
-        else:
-            renderer_factory = make_adaptive_oracle
+        if renderer_factory is None:
+            if interpret or self.backend_resolved == "cuda":
+                from myraytracer_tpu_torch.kernels import trace as ktrace
+
+                renderer_factory = (ktrace.make_adaptive_plain_renderer if interpret
+                                    else ktrace.make_adaptive_renderer)
+            else:
+                renderer_factory = make_adaptive_oracle
         self._make_render = lambda: renderer_factory(
             cam=world.camera, width=self.width, height=self.height,
             n_sel=self.n_sel_local, max_samples=config.samples_per_frame,

@@ -31,7 +31,10 @@ additions are the same, so the result is too.
 
 Every random draw is ``threefry(key, (pixel_lane, sample*254 + slot))``,
 so the result is independent of batching: ``make_block_renderer`` renders
-any row window for any sample window.
+any row window for any sample window. ``rng_mode="hw"`` (the JAX kernels'
+option) draws the scatter, NEE and camera slots from the Philox stream
+``philox4x32(key, (pixel_lane, sample, bounce + 1, slot >> 1))`` instead
+(``core.rng.uniform4_hw``), as independent of batching.
 """
 
 from __future__ import annotations
@@ -52,6 +55,17 @@ from myraytracer_tpu_torch.scene.api import Camera
 from myraytracer_tpu_torch.scene.compile import CompiledScene
 
 M32 = crng.M32
+
+# The sample streams of the kernels' ``rng_mode``: threefry (the JAX
+# integrator's, the default) and the Philox stream that stands in for the
+# TPU's hardware generator (``crng.uniform4_hw``).
+RNG_MODES = ("threefry", "hw")
+
+
+def check_rng_mode(rng_mode: str) -> None:
+    """Raise ValueError unless ``rng_mode`` is one of ``RNG_MODES``."""
+    if rng_mode not in RNG_MODES:
+        raise ValueError(f"rng_mode must be 'threefry' or 'hw', got {rng_mode!r}")
 
 
 def _sky_color(d: V3, sky) -> V3:
@@ -81,6 +95,7 @@ def trace(
     gates: Optional[SweepGates] = None,
     nee_lights=None,
     rr: int = 0,
+    rng_mode: str = "threefry",
 ) -> Tuple[V3, torch.Tensor]:
     """Trace normalized rays (1-D lanes) to completion.
 
@@ -92,8 +107,13 @@ def trace(
     = off) enables next-event estimation with MIS; ``rr > 0`` Russian
     roulette before bounce ``rr`` and later, its decision drawn under the
     ``RR_KEY_FOLD`` key of the bounce's page. Depths past ``MAX_DEPTH`` draw
-    their bounces from paged keys (``crng.depth_page_key``).
+    their bounces from paged keys (``crng.depth_page_key``). ``rng_mode``
+    ``"hw"`` draws the bounces from the Philox stream instead
+    (``crng.uniform4_hw``: one call for slots 0-1, one for slots 2-3, the
+    counter holding the absolute bounce, so no page key); Russian roulette
+    keeps its threefry key.
     """
+    hw = rng_mode == "hw"
     nee = bool(nee_lights)
     rr = int(rr)
     n = o.x.shape[0]
@@ -103,7 +123,7 @@ def trace(
     # State of the lanes still alive; ``live`` maps them to their lanes.
     live = torch.arange(n, device=dev)
     atten = V3.ones((n,), dev)
-    lane = lane_id
+    lane, sid = lane_id, sample_id
     draw_base = (sample_id * crng.DRAWS_PER_SAMPLE + crng.CAMERA_DRAWS) & M32
     # Cosine of the last diffuse scatter (MIS pickup weight; 0 = specular).
     prev_cos = torch.zeros((n,), device=dev)
@@ -130,7 +150,7 @@ def trace(
                 c = c * torch.where(pd > 0.0, pd / torch.clamp_min(pd + piq, 1e-12), 1.0)
             _add_at(rad, live[is_light], c)
         keep = hit.mask & ~is_light
-        live, lane, draw_base = live[keep], lane[keep], draw_base[keep]
+        live, lane, sid, draw_base = live[keep], lane[keep], sid[keep], draw_base[keep]
         o, d, atten = o.index(keep), d.index(keep), atten.index(keep)
         hit = _select_lanes(hit, keep)
         # The texture's value at the hit replaces the albedo (no-op on an
@@ -147,9 +167,13 @@ def trace(
         page, local = divmod(i, crng.BOUNCES_PER_PAGE)
         bkey = crng.depth_page_key(key, page)
         draw = (draw_base + local * crng.DRAWS_PER_BOUNCE) & M32
-        us1, us2 = crng.uniform2(bkey, lane, draw)
-        ub1, ub2 = crng.uniform2(bkey, lane, draw + 1)
-        ub3, ud = crng.uniform2(bkey, lane, draw + 2)
+        if hw:
+            us1, us2, ub1, ub2 = crng.uniform4_hw(key, lane, sid, i, 0)
+            ub3, ud, hn1, hn2 = crng.uniform4_hw(key, lane, sid, i, 1)
+        else:
+            us1, us2 = crng.uniform2(bkey, lane, draw)
+            ub1, ub2 = crng.uniform2(bkey, lane, draw + 1)
+            ub3, ud = crng.uniform2(bkey, lane, draw + 2)
         sphere_sample = crng.unit_sphere_from_uniforms(us1, us2)
         ball_sample = crng.unit_ball_from_uniforms(ub1, ub2, ub3)
 
@@ -158,7 +182,10 @@ def trace(
             # One shadow ray per Lambertian hit, counted whether or not the
             # sample is usable; the sweep starts at the light distance.
             sel = is_lamb.nonzero().squeeze(1)
-            n1, n2 = crng.uniform2(bkey, lane[sel], draw[sel] + 3)
+            if hw:
+                n1, n2 = hn1[sel], hn2[sel]
+            else:
+                n1, n2 = crng.uniform2(bkey, lane[sel], draw[sel] + 3)
             point, normal = hit.point.index(sel), hit.normal.index(sel)
             omega, t_p, contrib, add = lights_mod.sample_lights(
                 nee_lights, point, normal, ud[sel], n1, n2)
@@ -175,7 +202,7 @@ def trace(
         sc = scatter(d, hit, sphere_sample, ball_sample, ud)
         ok = sc.ok  # absorbed → retire black (shader.wgsl:349-350)
         live, lane, draw, is_lamb = live[ok], lane[ok], draw[ok], is_lamb[ok]
-        draw_base = draw_base[ok]
+        sid, draw_base = sid[ok], draw_base[ok]
         normal = hit.normal.index(ok)
         atten = atten.index(ok) * sc.attenuation.index(ok)
         o = hit.point.index(ok)
@@ -190,6 +217,7 @@ def trace(
                             0.05, 0.95)
             live_on = ~(u >= p)
             live, lane, draw_base = live[live_on], lane[live_on], draw_base[live_on]
+            sid = sid[live_on]
             o, d = o.index(live_on), d.index(live_on)
             atten = atten.index(live_on) * (1.0 / p[live_on])
             if nee:
@@ -221,6 +249,7 @@ def render_sample_batch(
     nee_lights=None,
     qmc: bool = False,
     rr: int = 0,
+    rng_mode: str = "threefry",
 ) -> Tuple[V3, torch.Tensor]:
     """Camera-generate and trace one batch of (pixel, sample) lanes.
 
@@ -228,13 +257,18 @@ def render_sample_batch(
     absolute, so a camera without a lens (reference mode) skips slot 1
     and nothing else in the stream moves. Under ``qmc`` both pairs come
     from the Owen-scrambled Sobol sequence instead (``crng``), and slots
-    0-1 are not drawn.
+    0-1 are not drawn. Under ``rng_mode`` ``"hw"`` slots 0-1 are one
+    Philox call (``crng.uniform4_hw`` at bounce -1).
     """
     if qmc:
         u1, u2 = crng.qmc_camera_uniforms(key, lane_id, sample_id, 0)
         if lens_draws:
             l1, l2 = crng.qmc_camera_uniforms(key, lane_id, sample_id, 1)
         else:
+            l1 = l2 = torch.zeros_like(u1)
+    elif rng_mode == "hw":
+        u1, u2, l1, l2 = crng.uniform4_hw(key, lane_id, sample_id, -1, 0)
+        if not lens_draws:
             l1 = l2 = torch.zeros_like(u1)
     else:
         cam_draw = (sample_id * crng.DRAWS_PER_SAMPLE) & M32
@@ -245,7 +279,7 @@ def render_sample_batch(
             l1 = l2 = torch.zeros_like(u1)
     o, d = ray_gen(ix, iy, u1, u2, l1, l2)
     return trace(o, d, lane_id, sample_id, key, scene, depth, t_min, t_max, sky=sky,
-                 gates=gates, nee_lights=nee_lights, rr=rr)
+                 gates=gates, nee_lights=nee_lights, rr=rr, rng_mode=rng_mode)
 
 
 def ray_generator(cam: Camera, width: int, height: int,
@@ -279,6 +313,7 @@ def pixel_sums(
     nee_lights=None,
     qmc: bool = False,
     rr: int = 0,
+    rng_mode: str = "threefry",
 ) -> Tuple[V3, torch.Tensor]:
     """Radiance sums and segment counts of 1-D pixel lanes ``(ix, iy)``
     over sample indices ``[sample_start, sample_start + n_samples)``.
@@ -306,7 +341,7 @@ def pixel_sums(
             lane_id.expand(k, n).reshape(-1),
             sample_id.reshape(-1),
             key, depth, t_min, t_max, sky=sky, lens_draws=lens_draws,
-            gates=gates, nee_lights=nee_lights, qmc=qmc, rr=rr,
+            gates=gates, nee_lights=nee_lights, qmc=qmc, rr=rr, rng_mode=rng_mode,
         )
         rad = V3(*(c.view(k, n) for c in rad))
         for r in range(k):
@@ -333,6 +368,7 @@ def make_block_renderer(
     rr: int = 0,
     frames: int = 1,
     gates: Optional[SweepGates] = None,
+    rng_mode: str = "threefry",
 ):
     """Build the composable rendering primitive.
 
@@ -353,11 +389,13 @@ def make_block_renderer(
     ``gates`` (the scene's, from ``kernels.trace.gate_tables``) makes the
     closest-hit sweeps the CUDA kernel's gated sweep. ``nee_lights``,
     ``qmc`` and ``rr`` select the estimator's modes (``trace``,
-    ``render_sample_batch``); ``material_set`` and ``texture_set`` are not
-    needed (emission and the texture rows are read from the compiled
-    scene).
+    ``render_sample_batch``), ``rng_mode`` the stream (``"threefry"`` or
+    ``"hw"``, the kernels' Philox stream; ``check_rng_mode``);
+    ``material_set`` and ``texture_set`` are not needed (emission and the
+    texture rows are read from the compiled scene).
     """
     del material_set, texture_set  # emission and textures are read off the scene
+    check_rng_mode(rng_mode)
     frames = int(frames)
     n_pixels = n_rows * width
 
@@ -369,7 +407,7 @@ def make_block_renderer(
             pix % width, pix // width + int(row0), int(sample_start),
             int(n_valid), key, width, ray_depth, t_min, t_max, sky=sky,
             lens_draws=not cam.reference_mode, sample_batch=sample_batch,
-            gates=gates, nee_lights=nee_lights, qmc=qmc, rr=rr,
+            gates=gates, nee_lights=nee_lights, qmc=qmc, rr=rr, rng_mode=rng_mode,
         )
         img_sum = acc.stacked(-1).view(n_rows, width, 3)
         return img_sum, segs.to(torch.float32).view(n_rows, width)
@@ -410,6 +448,7 @@ def make_renderer(
     texture_set=None,
     qmc: bool = False,
     rr: int = 0,
+    rng_mode: str = "threefry",
 ):
     """Build a single-device frame renderer on the plain integrator.
 
@@ -428,7 +467,7 @@ def make_renderer(
         cam, width, height, height, spp, ray_depth, t_min=t_min, t_max=t_max,
         sample_batch=sample_batch, material_set=material_set, sky=sky,
         nee_lights=nee_lights, texture_set=texture_set, qmc=qmc, rr=rr,
-        frames=frames,
+        frames=frames, rng_mode=rng_mode,
     )
     return frame_renderer(block, spp, frames)
 

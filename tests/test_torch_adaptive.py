@@ -334,3 +334,51 @@ def test_run_budget_spends_within_the_budget():
     assert smap.min() >= 2 * spp and smap.max() > smap.min()
     budget = 6 * spp * KW["width"] * KW["height"]
     assert s.samples_spent <= budget < s.samples_spent + s.round_cost()
+
+
+def _run_session(s, steps=3):
+    for _ in range(steps):  # the bootstrap, then auto rounds
+        s.step()
+    return s
+
+
+def test_session_uses_a_custom_renderer_factory():
+    """``renderer_factory(**kw)`` receives the keywords the port's own
+    factory does, and its renderer renders every round: here the oracle
+    with each call counted, bitwise the session without it."""
+    calls, seen = [], []
+
+    def factory(**kw):
+        seen.append(sorted(kw))
+        render = adaptive.make_adaptive_oracle(**kw)
+
+        def counted(*args):
+            calls.append(1)
+            return render(*args)
+
+        return counted
+
+    cfg = RenderConfig(**{**KW, "backend": "torch"})
+    world = tpresets.get_scene("three-sphere")
+    s = _run_session(adaptive.AdaptiveSession(world, cfg, 2, factory))
+    assert seen == [sorted(["cam", "width", "height", "n_sel", "max_samples", "ray_depth",
+                            "windows", "t_min", "t_max", "material_set", "sky",
+                            "nee_lights", "texture_set", "qmc", "rr"])]
+    assert len(calls) == s.sub_rounds // s.windows > 0
+    plain = _run_session(port_session("three-sphere", 2))
+    assert torch.equal(s.framebuffer, plain.framebuffer)
+    np.testing.assert_array_equal(s.spp_map, plain.spp_map)
+
+
+def test_session_interpret_is_the_plain_torch_backend():
+    """``interpret=True`` runs the kernel's plain version on the session's
+    device: on the CPU bitwise the ``backend="torch"`` session, the kernel's
+    gates included (final's sweep is culled), with a mesh by name."""
+    world = tpresets.get_scene("final")
+    cfg = RenderConfig(**{**KW, "backend": "torch", "ray_depth": 3})
+    a = _run_session(adaptive.AdaptiveSession(world, cfg, 2, None, True))
+    b = _run_session(adaptive.AdaptiveSession(world, cfg, n_sel=2, mesh=None))
+    assert a._render.__qualname__.startswith("_adaptive_renderer")
+    for sa, sb in zip(a._state, b._state):
+        assert torch.equal(sa, sb)
+    assert a.segments_traced == b.segments_traced
