@@ -1,0 +1,233 @@
+"""The comparison that decides ``correct``: the framebuffers that the timed
+path fetched to host memory, at pixels spread over the whole image, and
+the segment count it reported, against the plain reference.
+
+The reference (``benchmark.reference``, a frozen copy of the program's
+plain integrator, sweep, gates, materials, lights, camera, RNG and scene
+compiler) works everything out again from the configuration file: the
+world, the compiled scene, the gates, the lights, the turntable's cameras.
+It takes from the run only what the run asked of the program (which view,
+which sample window, how many frames) and, to judge them, the program's
+answers. For each picked answer it traces every sample of every frame
+blended into it at the picked pixels, divides by the samples a frame and
+blends the frames in the session's order with the session's weights, and
+compares the result with the program's pixels. Only the counts of one
+picked pixel set are known to the reference, so the segments are compared
+as segments a sample: the program's over the whole image against the
+reference's over the picked pixels.
+
+``Reference(..., dtype=torch.bfloat16)`` is the control: the same
+reference computed in the precision below the configuration's float32.
+"""
+
+from __future__ import annotations
+
+import contextlib
+from typing import NamedTuple, Optional
+
+import numpy as np
+import torch
+
+from benchmark import traffic as tr
+from benchmark import world as world_mod
+from benchmark.reference import api as rapi
+from benchmark.reference import camera as rcam
+from benchmark.reference import compile as rcompile
+from benchmark.reference import gates as rgates
+from benchmark.reference import hit as rhit
+from benchmark.reference import integrator as rint
+from benchmark.reference import lights as rlights
+from benchmark.reference import rng as rrng
+from benchmark.reference.vec import computing_in
+
+# The renderer's window (RenderConfig's defaults; shader.wgsl:340).
+T_MIN, T_MAX = 1e-3, 1e4
+# The compiler sorts a scene spatially past 64 spheres or 64 triangles
+# (myraytracer_tpu_torch/render/session.py:wants_spatial_sort, 32ae5bc).
+SPATIAL_SORT_MIN = 64
+# Rays the reference traces in one pass (bounds its memory on the card).
+RAY_BUDGET = 1 << 19
+
+
+class Answer(NamedTuple):
+    """What the run asked of the program for one framebuffer that reached
+    host memory, and what it got."""
+
+    view: Optional[int]  # turntable step, or None for the published camera
+    sample_start: int  # the session's sample cursor at the last reset
+    frames: int  # frames blended in since the last reset
+    spp: int  # samples a frame
+    segments: float  # segments the program reported for those frames
+    framebuffer: np.ndarray  # [H, W, 3] float32, as fetched
+
+
+class Reading(NamedTuple):
+    """The reference's (or the control's) side of some answers: pixel
+    values [answers, P, 3], segments and samples over the picked pixels,
+    and the sweep's tests when counted."""
+
+    values: np.ndarray
+    segments: int
+    samples: int
+    tests: Optional[dict]
+
+
+def fma_f32(a: np.ndarray, b: np.ndarray, c: np.ndarray) -> np.ndarray:
+    """``a*b + c`` in float32 with one rounding (copied from
+    ``myraytracer_tpu_torch/render/session.py:fma_f32`` at 32ae5bc, in
+    numpy): the float32 product is exact in float64, the float64 sum is
+    rounded to odd, so the last rounding is the correctly rounded one."""
+    p = a.astype(np.float64) * b.astype(np.float64)
+    cd = c.astype(np.float64)
+    s = p + cd
+    bb = s - p
+    err = (p - (s - bb)) + (cd - bb)
+    even = (s.view(np.int64) & 1) == 0
+    toward = np.where(err > 0, np.inf, -np.inf)
+    s = np.where((err != 0) & even, np.nextafter(s, toward), s)
+    return s.astype(np.float32)
+
+
+def blend(frames: np.ndarray, max_weight: float = 1.0) -> np.ndarray:
+    """The session's accumulation of per-frame images ``[n, ...]`` from a
+    reset: ``fb = fma(fb, w, img * (1 - w))`` with ``w = min(max_weight,
+    k / (k + 1))`` for the k-th frame, in float32 (``_blend_chain``)."""
+    fb = np.zeros(frames.shape[1:], np.float32)
+    one = np.float32(1.0)
+    for k, img in enumerate(frames):
+        w = np.float32(min(max_weight, k / (k + 1)) if k else 0.0)
+        fb = fma_f32(fb, w, img * (one - w))
+    return fb
+
+
+class Reference:
+    """The plain reference of one cell, on ``device``, in ``dtype``."""
+
+    def __init__(self, cfg: dict, traffic: dict, key_seed: int, device, dtype=torch.float32):
+        self.width, self.height = int(cfg["width"]), int(cfg["height"])
+        self.depth = int(cfg["max_depth"])
+        self.device = torch.device(device)
+        self.dtype = dtype
+        self.world = world_mod.build_world(cfg, rapi)
+        self.views = tr.views(cfg, traffic, rapi)
+        sort = (len(self.world.spheres) > SPATIAL_SORT_MIN
+                or self.world.triangle_count > SPATIAL_SORT_MIN)
+        scene = rcompile.compile_scene(self.world, spatial_sort=sort, device=self.device)
+        self.tables = rgates.gate_tables(scene)
+        gates = self.tables.gates
+        if dtype != torch.float32:
+            scene = _cast_scene(scene, dtype)
+            gates = gates._replace(**{k: None if getattr(gates, k) is None
+                                      else getattr(gates, k).to(dtype)
+                                      for k in ("aabb", "saabb", "traabb", "tsaabb")})
+        self.scene, self.gates = scene, gates
+        self.lights = rlights.extract_lights(self.world) if cfg["nee"] else None
+        self.sky = self.world.ambient
+        self.key = rrng.key_from_seed(key_seed)
+
+    def camera(self, view: Optional[int]):
+        cam = self.world.camera if view is None else self.views[view]
+        packed = rcam.pack_camera(cam, self.width, self.height)
+        return torch.from_numpy(packed).to(self.device, self.dtype)
+
+    def _frames(self, ans: Answer, ix: np.ndarray, iy: np.ndarray) -> tuple:
+        """Per-frame images [frames, P, 3] of ``ans`` at the pixels, and
+        the segments traced."""
+        n_pix = ix.shape[0]
+        lanes = n_pix * ans.frames
+        cam = self.camera(ans.view)
+        ray_gen = rint.ray_generator(rapi.Camera(), self.width, self.height, cam)
+        dev = self.device
+        pix_x = torch.from_numpy(np.tile(ix, ans.frames)).to(dev)
+        pix_y = torch.from_numpy(np.tile(iy, ans.frames)).to(dev)
+        starts = (ans.sample_start
+                  + ans.spp * torch.arange(ans.frames, dtype=torch.int64).repeat_interleave(n_pix))
+        starts = starts.to(dev)
+        per = max(1, RAY_BUDGET // max(1, ans.spp))
+        out, segs = [], 0
+        for a in range(0, lanes, per):
+            b = min(lanes, a + per)
+            acc, sg = rint.pixel_sums(
+                self.scene, ray_gen, pix_x[a:b], pix_y[a:b], starts[a:b], ans.spp, self.key,
+                self.width, self.depth, T_MIN, T_MAX, sky=self.sky, lens_draws=True,
+                sample_batch=max(1, RAY_BUDGET // (b - a)), gates=self.gates,
+                nee_lights=self.lights)
+            # The renderer's division (integrator.frame_renderer), on the device.
+            out.append((acc.stacked(-1) * (1.0 / ans.spp)).float().cpu())
+            segs += int(sg.sum())
+        imgs = torch.cat(out).numpy().reshape(ans.frames, n_pix, 3)
+        return imgs, segs
+
+    def read(self, answers, ix: np.ndarray, iy: np.ndarray, count: bool = False) -> Reading:
+        """The reference's pixels of each answer (blended as the session
+        blends), its segments and samples; with ``count`` the sweep's
+        tests too (``hit.count_tests``)."""
+        values, segs, samples = [], 0, 0
+        counting = rhit.count_tests() if count else contextlib.nullcontext()
+        with counting as tests, computing_in(self.dtype), torch.no_grad():
+            for ans in answers:
+                imgs, s = self._frames(ans, ix, iy)
+                values.append(blend(imgs))
+                segs += s
+                samples += ix.shape[0] * ans.frames * ans.spp
+        return Reading(np.stack(values), segs, samples, tests)
+
+
+def _cast_scene(scene, dtype):
+    """The compiled scene with its float tables in ``dtype``."""
+    def cast(v):
+        if isinstance(v, torch.Tensor):
+            return v.to(dtype) if v.is_floating_point() else v
+        if isinstance(v, tuple) and hasattr(v, "_fields"):
+            return type(v)(*(cast(x) for x in v))
+        return v
+    return cast(scene)
+
+
+def program_values(answers, ix: np.ndarray, iy: np.ndarray) -> np.ndarray:
+    """The program's framebuffers at the pixels, [answers, P, 3]."""
+    return np.stack([a.framebuffer[iy, ix, :] for a in answers]).astype(np.float32)
+
+
+def max_abs_diff(got: np.ndarray, want: np.ndarray) -> float:
+    """The largest |got - want|; a NaN on one side only is infinitely far,
+    on both sides it agrees."""
+    d = np.abs(got.astype(np.float64) - want.astype(np.float64))
+    both = np.isnan(got) & np.isnan(want)
+    d = np.where(both, 0.0, d)
+    d = np.where(np.isnan(d), np.inf, d)
+    return float(d.max()) if d.size else 0.0
+
+
+def segments_gap(prog_segments: float, prog_samples: float, ref: Reading) -> float:
+    """|program's segments a sample - the reference's| / the reference's."""
+    want = ref.segments / ref.samples
+    return abs(prog_segments / prog_samples - want) / want
+
+
+def numbers(answers, reading: Reading, ix, iy, width: int, height: int) -> dict:
+    """The numbers compared, for the program's answers."""
+    prog_segs = sum(a.segments for a in answers)
+    prog_samples = sum(width * height * a.frames * a.spp for a in answers)
+    return {
+        "fb_max_abs_diff": max_abs_diff(program_values(answers, ix, iy), reading.values),
+        "segs_rel_gap": segments_gap(prog_segs, prog_samples, reading),
+    }
+
+
+def control_numbers(control: Reading, reading: Reading) -> dict:
+    """The same numbers for the control put in the program's place: its
+    pixels, and its segments a sample over the same pixels."""
+    return {
+        "fb_max_abs_diff": max_abs_diff(control.values, reading.values),
+        "segs_rel_gap": segments_gap(control.segments, control.samples, reading),
+    }
+
+
+def verdict(nums: dict, limits: dict) -> dict:
+    """Each number beside its limit, in the order of ``limits``."""
+    return {k: {"value": nums[k], "limit": limits[k]} for k in limits}
+
+
+def passed(checks: dict) -> bool:
+    return all(c["value"] <= c["limit"] for c in checks.values())

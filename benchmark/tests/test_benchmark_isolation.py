@@ -1,0 +1,67 @@
+"""What the reference and the harness import: the reference nothing of
+the program, and nothing anywhere JAX or the JAX package."""
+
+import ast
+import pathlib
+
+import pytest
+
+from conftest import ROOT
+
+BENCH = ROOT / "benchmark"
+
+
+def _imports(path: pathlib.Path) -> set:
+    tree = ast.parse(path.read_text())
+    names = set()
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names |= {a.name for a in node.names}
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            names.add(node.module)
+    return names
+
+
+def _local_closure(start: pathlib.Path) -> set:
+    """The benchmark's own modules that ``start`` loads, itself included."""
+    seen, todo = set(), [start]
+    while todo:
+        path = todo.pop()
+        if path in seen:
+            continue
+        seen.add(path)
+        tree = ast.parse(path.read_text())
+        for node in ast.walk(tree):
+            if isinstance(node, ast.ImportFrom):
+                if node.level:  # relative, inside benchmark/reference
+                    base = path.parent
+                    mods = [node.module] if node.module else [a.name for a in node.names]
+                    for m in mods:
+                        todo.append(base / f"{m.replace('.', '/')}.py")
+                elif node.module and node.module.startswith("benchmark"):
+                    mod = node.module
+                    cand = [ROOT / f"{mod.replace('.', '/')}.py"]
+                    cand += [ROOT / f"{mod.replace('.', '/')}/{a.name}.py" for a in node.names]
+                    todo += [c for c in cand if c.is_file()]
+    return seen
+
+
+@pytest.mark.parametrize("start", ["check.py", "reference/integrator.py", "world.py",
+                                   "traffic.py", "roofline.py"])
+def test_reference_imports_nothing_of_the_program(start):
+    for path in _local_closure(BENCH / start):
+        tops = {n.split(".")[0] for n in _imports(path)}
+        assert "myraytracer_tpu_torch" not in tops, path
+        assert not tops & {"jax", "jaxlib", "flax", "myraytracer_tpu"}, path
+
+
+def test_no_file_of_the_benchmark_imports_jax():
+    for path in BENCH.rglob("*.py"):
+        tops = {n.split(".")[0] for n in _imports(path)}
+        assert not tops & {"jax", "jaxlib", "flax", "myraytracer_tpu"}, path
+
+
+def test_only_run_loads_the_program():
+    users = {p.relative_to(BENCH).as_posix() for p in BENCH.rglob("*.py")
+             if "myraytracer_tpu_torch" in {n.split(".")[0] for n in _imports(p)}}
+    assert users <= {"run.py", "tests/test_benchmark_run.py"}
