@@ -1,0 +1,10 @@
+"""Calls that block the host on the card (the program's host-sync sites,
+``utils/profiling.host_sync``: the camera's upload, the segment read,
+the gather, the NaN check, ``run``'s sync) over the frames stepped in the
+window; set-up's few are counted too."""
+
+from benchmark import program_spans
+
+
+def read(ctx):
+    return program_spans.syncs_per_frame(ctx)

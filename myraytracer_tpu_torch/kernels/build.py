@@ -32,6 +32,8 @@ import subprocess
 import tempfile
 from typing import Dict, Iterable, List, Sequence, Tuple
 
+from myraytracer_tpu_torch.utils import profiling
+
 CSRC = pathlib.Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[2] / "build" / "kernels"
 NVCC_FLAGS = (
@@ -226,13 +228,14 @@ class Kernel:
 
     def load(self):
         if self._fn is None:
-            lib = (self.source, self.flags)
-            if lib not in _LIBS:  # one library a source and flags, loaded once
-                _LIBS[lib] = ctypes.CDLL(str(build(self.source, self.flags)))
-            fn = getattr(_LIBS[lib], self.symbol)
-            fn.argtypes = self.argtypes
-            fn.restype = ctypes.c_int
-            self._fn = fn
+            with profiling.span("kernel.load"):
+                lib = (self.source, self.flags)
+                if lib not in _LIBS:  # one library a source and flags, loaded once
+                    _LIBS[lib] = ctypes.CDLL(str(build(self.source, self.flags)))
+                fn = getattr(_LIBS[lib], self.symbol)
+                fn.argtypes = self.argtypes
+                fn.restype = ctypes.c_int
+                self._fn = fn
         return self._fn
 
     def launch(self, *args):

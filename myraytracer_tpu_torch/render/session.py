@@ -195,62 +195,63 @@ class RenderSession:
         config: RenderConfig = RenderConfig(),
         renderer_factory=None,
     ):
-        self.world = world
-        self.config = config
-        # The view being rendered: set_camera's last camera, or the one a
-        # checkpoint recorded (the base of the viewer's orbits).
-        self.camera = world.camera
-        self.width, self.height = config.resolve_size()
-        if renderer_factory is None:
-            from myraytracer_tpu_torch.render import dispatch
+        with profiling.span("session.init"):
+            self.world = world
+            self.config = config
+            # The view being rendered: set_camera's last camera, or the one a
+            # checkpoint recorded (the base of the viewer's orbits).
+            self.camera = world.camera
+            self.width, self.height = config.resolve_size()
+            if renderer_factory is None:
+                from myraytracer_tpu_torch.render import dispatch
 
-            resolved = dispatch.resolve_backend(config)
-            renderer_factory = dispatch.renderer_factory(resolved, world, config)
-        else:
-            resolved = resolve_device_backend(config.backend)
-        self.backend_resolved = resolved
-        self.device = torch.device("cuda" if resolved == "cuda" else "cpu")
-        # The routing model's CPU rate for this world, which the CLI holds
-        # the first steady-state frame to (cli._check_routing_prediction).
-        self.routing_prediction = None
-        if resolved == "cpu":
-            from myraytracer_tpu_torch.native import cpu_backend
+                resolved = dispatch.resolve_backend(config)
+                renderer_factory = dispatch.renderer_factory(resolved, world, config)
+            else:
+                resolved = resolve_device_backend(config.backend)
+            self.backend_resolved = resolved
+            self.device = torch.device("cuda" if resolved == "cuda" else "cpu")
+            # The routing model's CPU rate for this world, which the CLI holds
+            # the first steady-state frame to (cli._check_routing_prediction).
+            self.routing_prediction = None
+            if resolved == "cpu":
+                from myraytracer_tpu_torch.native import cpu_backend
 
-            pred = cpu_backend.route_prediction(world, config)
-            self.routing_prediction = pred[0] if pred else None
-        self.scene = session_scene(world, resolved, self.width, self.height)
-        self.key = crng.key_from_seed(config.seed)
+                pred = cpu_backend.route_prediction(world, config)
+                self.routing_prediction = pred[0] if pred else None
+            self.scene = session_scene(world, resolved, self.width, self.height)
+            self.key = crng.key_from_seed(config.seed)
 
-        self.frame_batch = config.resolve_frame_batch(resolved)
-        if self.frame_batch > 1 and config.shard not in ("none", "tiles"):
-            # Tile stripes keep contiguous sample windows across frame
-            # buckets; sample and hybrid shards do not (parallel/sharding.py).
-            raise ValueError("frame_batch > 1 requires shard 'none' or 'tiles'")
-        self._render = renderer_factory(
-            world.camera,
-            self.width,
-            self.height,
-            config.samples_per_frame,
-            config.ray_depth,
-            **renderer_kwargs(world, config, self.frame_batch),
-        )
-        # One attribute, so that a step commits with one store: an interrupt
-        # (Ctrl-C under --frames 0) between separate stores could leave a
-        # framebuffer with a frame that the counters do not count, and a
-        # resume would then repeat a window of samples.
-        self._acc = Accumulation(torch.zeros(
-            (self.height, self.width, 3), dtype=torch.float32, device=self.device
-        ), 0, 0)
-        # A sharded renderer's mesh and the rows each entry renders: under
-        # several processes a rank's framebuffer holds only its own rows.
-        self.mesh = getattr(self._render, "mesh", None)
-        self.ndev = self.mesh.size if self.mesh is not None else 1
-        self._rows = getattr(self._render, "rows", None)
-        # Per-step segment totals stay on the device until read, so a step
-        # does not wait for the device; they fold into a float64 host total.
-        self._segs_total = 0.0
-        self._segs_pending = []
-        self._fingerprint = None
+            self.frame_batch = config.resolve_frame_batch(resolved)
+            if self.frame_batch > 1 and config.shard not in ("none", "tiles"):
+                # Tile stripes keep contiguous sample windows across frame
+                # buckets; sample and hybrid shards do not (parallel/sharding.py).
+                raise ValueError("frame_batch > 1 requires shard 'none' or 'tiles'")
+            self._render = renderer_factory(
+                world.camera,
+                self.width,
+                self.height,
+                config.samples_per_frame,
+                config.ray_depth,
+                **renderer_kwargs(world, config, self.frame_batch),
+            )
+            # One attribute, so that a step commits with one store: an interrupt
+            # (Ctrl-C under --frames 0) between separate stores could leave a
+            # framebuffer with a frame that the counters do not count, and a
+            # resume would then repeat a window of samples.
+            self._acc = Accumulation(torch.zeros(
+                (self.height, self.width, 3), dtype=torch.float32, device=self.device
+            ), 0, 0)
+            # A sharded renderer's mesh and the rows each entry renders: under
+            # several processes a rank's framebuffer holds only its own rows.
+            self.mesh = getattr(self._render, "mesh", None)
+            self.ndev = self.mesh.size if self.mesh is not None else 1
+            self._rows = getattr(self._render, "rows", None)
+            # Per-step segment totals stay on the device until read, so a step
+            # does not wait for the device; they fold into a float64 host total.
+            self._segs_total = 0.0
+            self._segs_pending = []
+            self._fingerprint = None
 
     @property
     def framebuffer(self) -> torch.Tensor:
@@ -284,7 +285,9 @@ class RenderSession:
         from myraytracer_tpu_torch.parallel.sharding import total_segments
 
         pending, self._segs_pending = self._segs_pending, []
-        self._segs_total += total_segments(pending, self.mesh)
+        if pending or (self.mesh is not None and self.mesh.proc is not None):
+            with profiling.host_sync("session.segments"):
+                self._segs_total += total_segments(pending, self.mesh)
         return self._segs_total
 
     def fetch_framebuffer(self) -> torch.Tensor:
@@ -295,7 +298,8 @@ class RenderSession:
             return self.framebuffer
         from myraytracer_tpu_torch.parallel.sharding import fetch_array
 
-        return torch.from_numpy(fetch_array(self.framebuffer, self._rows)).to(self.device)
+        with profiling.host_sync("session.fetch_gather"):
+            return torch.from_numpy(fetch_array(self.framebuffer, self._rows)).to(self.device)
 
     @property
     def accumulated_spp(self) -> int:
@@ -305,47 +309,49 @@ class RenderSession:
         """Render one step of ``frame_batch`` frames and blend it in; returns
         the new framebuffer. The state changes only once the render and the
         blend have returned, in one store."""
-        acc = self._acc
-        next_cursor = (
-            acc.sample_cursor
-            + self.config.samples_per_frame * self.frame_batch
-        )
-        # QMC reserves the top two draw words for its per-pixel scrambles.
-        cap = crng.M32 - (crng.QMC_SCRAMBLE_SLOTS if self.config.qmc else 0)
-        if next_cursor * crng.DRAWS_PER_SAMPLE > cap:
-            # The draw index is sample_id * DRAWS_PER_SAMPLE + slot in
-            # uint32: past ~16.9M samples/pixel it would wrap and silently
-            # reuse the earliest samples' draws.
-            raise RuntimeError(
-                f"sample cursor {next_cursor} would overflow the uint32 "
-                f"draw-index space ({crng.M32 // crng.DRAWS_PER_SAMPLE} "
-                f"samples/pixel max): the RNG stream would alias"
+        with profiling.span("session.step"):
+            acc = self._acc
+            next_cursor = (
+                acc.sample_cursor
+                + self.config.samples_per_frame * self.frame_batch
             )
-        img, segs = self._render(self.scene, self.key, acc.sample_cursor)
-        # Weights from the count of previously completed frames (0 for the
-        # first frame, lib.rs:424), in f32 as the JAX session passes them.
-        cap = self.config.max_framebuffer_weight
-        ws = torch.tensor(
-            [
-                min(cap, n / (n + 1)) if n else 0.0
-                for n in range(acc.frame_count, acc.frame_count + self.frame_batch)
-            ],
-            dtype=torch.float32,
-        )
-        if self.device.type == "cuda":
-            # From pinned memory, without waiting: a pageable copy would
-            # sync the stream, so the host could not queue the next step
-            # while the card renders this one.
-            ws = ws.pin_memory().to(self.device, non_blocking=True)
-        if self.frame_batch == 1:
-            img = img.permute(2, 0, 1)[None]
-        fb = _blend_chain(acc.framebuffer, img, ws)
-        frames = acc.frame_count + self.frame_batch
-        if profiling.debug_nans():
-            profiling.check_finite(fb, f"frame {frames} (sample cursor {acc.sample_cursor})")
-        self._acc = Accumulation(fb, frames, next_cursor)
-        self._segs_pending.append(segs)
-        return fb
+            # QMC reserves the top two draw words for its per-pixel scrambles.
+            cap = crng.M32 - (crng.QMC_SCRAMBLE_SLOTS if self.config.qmc else 0)
+            if next_cursor * crng.DRAWS_PER_SAMPLE > cap:
+                # The draw index is sample_id * DRAWS_PER_SAMPLE + slot in
+                # uint32: past ~16.9M samples/pixel it would wrap and silently
+                # reuse the earliest samples' draws.
+                raise RuntimeError(
+                    f"sample cursor {next_cursor} would overflow the uint32 "
+                    f"draw-index space ({crng.M32 // crng.DRAWS_PER_SAMPLE} "
+                    f"samples/pixel max): the RNG stream would alias"
+                )
+            img, segs = self._render(self.scene, self.key, acc.sample_cursor)
+            # Weights from the count of previously completed frames (0 for the
+            # first frame, lib.rs:424), in f32 as the JAX session passes them.
+            cap = self.config.max_framebuffer_weight
+            ws = torch.tensor(
+                [
+                    min(cap, n / (n + 1)) if n else 0.0
+                    for n in range(acc.frame_count, acc.frame_count + self.frame_batch)
+                ],
+                dtype=torch.float32,
+            )
+            if self.device.type == "cuda":
+                # From pinned memory, without waiting: a pageable copy would
+                # sync the stream, so the host could not queue the next step
+                # while the card renders this one.
+                ws = ws.pin_memory().to(self.device, non_blocking=True)
+            if self.frame_batch == 1:
+                img = img.permute(2, 0, 1)[None]
+            with profiling.span("session.blend"):
+                fb = _blend_chain(acc.framebuffer, img, ws)
+            frames = acc.frame_count + self.frame_batch
+            if profiling.debug_nans():
+                profiling.check_finite(fb, f"frame {frames} (sample cursor {acc.sample_cursor})")
+            self._acc = Accumulation(fb, frames, next_cursor)
+            self._segs_pending.append(segs)
+            return fb
 
     def run(self, frames: int) -> torch.Tensor:
         """Run at least ``frames`` progressive frames; ``frames <= 0`` is a
@@ -353,7 +359,8 @@ class RenderSession:
         for _ in range(max(0, -(-frames // self.frame_batch))):
             self.step()
         if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+            with profiling.host_sync("session.run"):
+                torch.cuda.synchronize(self.device)
         return self.framebuffer
 
     def set_camera(self, cam: api.Camera) -> None:
@@ -364,12 +371,14 @@ class RenderSession:
                 "the reference-mode camera is fixed by contract; "
                 "use a general (lookfrom/lookat) camera scene to move"
             )
-        self.scene = self.scene._replace(cam=torch.from_numpy(
-            pack_camera(cam, self.width, self.height)
-        ).to(self.device))
-        self.camera = cam
-        self._acc = self._acc._replace(
-            framebuffer=torch.zeros_like(self._acc.framebuffer), frame_count=0)
+        with profiling.span("session.set_camera"):
+            packed = torch.from_numpy(pack_camera(cam, self.width, self.height))
+            with profiling.host_sync("session.camera_upload"):
+                packed = packed.to(self.device)
+            self.scene = self.scene._replace(cam=packed)
+            self.camera = cam
+            self._acc = self._acc._replace(
+                framebuffer=torch.zeros_like(self._acc.framebuffer), frame_count=0)
 
     # -- checkpoint / resume --------------------------------------------------
 
