@@ -31,6 +31,7 @@ import torch
 
 from myraytracer_tpu_torch.config import RenderConfig
 from myraytracer_tpu_torch.core import rng as crng
+from myraytracer_tpu_torch.kernels import blend as kblend
 from myraytracer_tpu_torch.render.camera import pack_camera
 from myraytracer_tpu_torch.render.lights import extract_lights
 from myraytracer_tpu_torch.scene import api
@@ -80,19 +81,31 @@ def fma_f32(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
     return s.float()
 
 
-def _blend_chain(fb_hwc: torch.Tensor, imgs_kchw: torch.Tensor,
-                 weights: torch.Tensor) -> torch.Tensor:
+def blend_plain(fb_hwc: torch.Tensor, imgs_kchw: torch.Tensor,
+                weights: torch.Tensor) -> torch.Tensor:
     """Blend K per-frame images ([K,3,H,W]) into the framebuffer ([H,W,3])
     in turn, with per-frame f32 weights: ``img*(1-w) + fb*w``.
 
     XLA compiles the JAX package's blend with the ``fb*w`` product fused
     into the add (one rounding), so this does the same (``fma_f32``): the
-    result is bitwise the JAX blend's, on every device.
+    result is bitwise the JAX blend's, on every device. The plain version
+    of ``kernels.blend.blend``.
     """
     fb = fb_hwc.permute(2, 0, 1)
     for img, w in zip(imgs_kchw, weights):
         fb = fma_f32(fb, w, img * (1.0 - w))
     return fb.permute(1, 2, 0).contiguous()
+
+
+def _blend_chain(fb_hwc: torch.Tensor, imgs_kchw: torch.Tensor,
+                 weights: torch.Tensor) -> torch.Tensor:
+    """A step's blend (``blend_plain``'s arguments and result): on CPU
+    tensors the plain chain, otherwise the CUDA kernel in one launch
+    (``kernels.blend.blend``, bitwise the chain), which raises on what it
+    does not take."""
+    if all(t.device.type == "cpu" for t in (fb_hwc, imgs_kchw, weights)):
+        return blend_plain(fb_hwc, imgs_kchw, weights)
+    return kblend.blend(fb_hwc, imgs_kchw, weights)
 
 
 def scene_fingerprint(scene) -> str:
