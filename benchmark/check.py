@@ -16,6 +16,14 @@ picked pixel set are known to the reference, so the segments are compared
 as segments a sample: the program's over the whole image against the
 reference's over the picked pixels.
 
+An adaptive image (``Answer.blocks``) is judged the same way, but its
+pixels are not uniform frames: each picked pixel's block got its own
+count of samples from its own cursor. The reference traces each of the
+pixel's windows as a lane of its own and folds the windows in sample
+order as the session does (``benchmark.reference.adaptive``); its
+samples are what the spp map says, and the program's segments a sample
+are over the samples it traced, the image's pixels only.
+
 ``Reference(..., dtype=torch.bfloat16)`` is the control: the same
 reference computed in the precision below the configuration's float32.
 """
@@ -23,6 +31,7 @@ reference computed in the precision below the configuration's float32.
 from __future__ import annotations
 
 import contextlib
+import math
 from typing import NamedTuple, Optional
 
 import numpy as np
@@ -30,6 +39,7 @@ import torch
 
 from benchmark import traffic as tr
 from benchmark import world as world_mod
+from benchmark.reference import adaptive as radaptive
 from benchmark.reference import api as rapi
 from benchmark.reference import camera as rcam
 from benchmark.reference import compile as rcompile
@@ -49,9 +59,26 @@ SPATIAL_SORT_MIN = 64
 RAY_BUDGET = 1 << 19
 
 
+class Blocks(NamedTuple):
+    """What an adaptive image asked of each pixel block: the block's sample
+    cursor at the last camera move and the samples it got since, both
+    [blocks_y, blocks_x] int64 and read from the spp map, the block's size
+    in pixels, the samples traced over the image's pixels (the spp map's
+    sum), and the samples the run asked for, whole blocks counted."""
+
+    start: np.ndarray
+    count: np.ndarray
+    width: int
+    height: int
+    samples: int
+    asked: int
+
+
 class Answer(NamedTuple):
     """What the run asked of the program for one framebuffer that reached
-    host memory, and what it got."""
+    host memory, and what it got. An adaptive image has ``blocks``, its
+    ``spp`` is a window's samples and its ``sample_start`` and ``frames``
+    are 0."""
 
     view: Optional[int]  # turntable step, or None for the published camera
     sample_start: int  # the session's sample cursor at the last reset
@@ -59,6 +86,7 @@ class Answer(NamedTuple):
     spp: int  # samples a frame
     segments: float  # segments the program reported for those frames
     framebuffer: np.ndarray  # [H, W, 3] float32, as fetched
+    blocks: Optional[Blocks] = None
 
 
 class Reading(NamedTuple):
@@ -158,6 +186,41 @@ class Reference:
         imgs = torch.cat(out).numpy().reshape(ans.frames, n_pix, 3)
         return imgs, segs
 
+    def _adaptive(self, ans: Answer, ix: np.ndarray, iy: np.ndarray) -> tuple:
+        """An adaptive image's pixels [P, 3], as the session folds them,
+        the segments traced and the samples: each pixel's windows of
+        ``ans.spp`` samples from its block's cursor, one lane a window."""
+        b = ans.blocks
+        start = b.start[iy // b.height, ix // b.width]
+        count = b.count[iy // b.height, ix // b.width]
+        if np.any(count % ans.spp):
+            raise ValueError("a block's samples are not whole windows")
+        windows = count // ans.spp
+        pix = np.repeat(np.arange(ix.shape[0]), windows)
+        win = np.arange(pix.shape[0]) - np.repeat(np.cumsum(windows) - windows, windows)
+        cam = self.camera(ans.view)
+        ray_gen = rint.ray_generator(rapi.Camera(), self.width, self.height, cam)
+        dev = self.device
+        pix_x = torch.from_numpy(ix[pix]).to(dev)
+        pix_y = torch.from_numpy(iy[pix]).to(dev)
+        starts = torch.from_numpy(start[pix] + ans.spp * win).to(dev)
+        sums = torch.zeros((int(windows.max(initial=0)), ix.shape[0], 3), dtype=torch.float32)
+        lanes = pix.shape[0]
+        per = max(1, RAY_BUDGET // ans.spp)
+        segs = 0
+        for a in range(0, lanes, per):
+            e = min(lanes, a + per)
+            acc, sg = rint.pixel_sums(
+                self.scene, ray_gen, pix_x[a:e], pix_y[a:e], starts[a:e], ans.spp, self.key,
+                self.width, self.depth, T_MIN, T_MAX, sky=self.sky, lens_draws=True,
+                sample_batch=max(1, RAY_BUDGET // (e - a)), gates=self.gates,
+                nee_lights=self.lights)
+            sums[torch.from_numpy(win[a:e]), torch.from_numpy(pix[a:e])] = \
+                acc.stacked(-1).float().cpu()
+            segs += int(sg.sum())
+        values = radaptive.fold(sums, torch.from_numpy(windows), ans.spp).numpy()
+        return values, segs, int(count.sum())
+
     def read(self, answers, ix: np.ndarray, iy: np.ndarray, count: bool = False) -> Reading:
         """The reference's pixels of each answer (blended as the session
         blends), its segments and samples; with ``count`` the sweep's
@@ -166,6 +229,12 @@ class Reference:
         counting = rhit.count_tests() if count else contextlib.nullcontext()
         with counting as tests, computing_in(self.dtype), torch.no_grad():
             for ans in answers:
+                if ans.blocks is not None:
+                    v, s, n = self._adaptive(ans, ix, iy)
+                    values.append(v)
+                    segs += s
+                    samples += n
+                    continue
                 imgs, s = self._frames(ans, ix, iy)
                 values.append(blend(imgs))
                 segs += s
@@ -201,27 +270,46 @@ def max_abs_diff(got: np.ndarray, want: np.ndarray) -> float:
 
 def segments_gap(prog_segments: float, prog_samples: float, ref: Reading) -> float:
     """|program's segments a sample - the reference's| / the reference's."""
+    if not prog_samples or not ref.samples or not ref.segments:
+        return math.inf
     want = ref.segments / ref.samples
     return abs(prog_segments / prog_samples - want) / want
+
+
+def samples_gap(answers) -> float:
+    """The largest |samples an adaptive image's spp map holds - samples the
+    run asked of it| / asked, whole blocks counted; 0 with no adaptive
+    answer."""
+    gaps = [abs(int(a.blocks.count.sum()) * a.blocks.width * a.blocks.height - a.blocks.asked)
+            / a.blocks.asked for a in answers if a.blocks is not None]
+    return max(gaps, default=0.0)
 
 
 def numbers(answers, reading: Reading, ix, iy, width: int, height: int) -> dict:
     """The numbers compared, for the program's answers."""
     prog_segs = sum(a.segments for a in answers)
-    prog_samples = sum(width * height * a.frames * a.spp for a in answers)
-    return {
+    prog_samples = sum(width * height * a.frames * a.spp if a.blocks is None else a.blocks.samples
+                       for a in answers)
+    nums = {
         "fb_max_abs_diff": max_abs_diff(program_values(answers, ix, iy), reading.values),
         "segs_rel_gap": segments_gap(prog_segs, prog_samples, reading),
     }
+    if any(a.blocks is not None for a in answers):
+        nums["samples_gap"] = samples_gap(answers)
+    return nums
 
 
-def control_numbers(control: Reading, reading: Reading) -> dict:
+def control_numbers(control: Reading, reading: Reading, answers=()) -> dict:
     """The same numbers for the control put in the program's place: its
-    pixels, and its segments a sample over the same pixels."""
-    return {
+    pixels, and its segments a sample over the same pixels; an adaptive
+    image's samples are the program's schedule, which the control takes."""
+    nums = {
         "fb_max_abs_diff": max_abs_diff(control.values, reading.values),
         "segs_rel_gap": segments_gap(control.segments, control.samples, reading),
     }
+    if any(a.blocks is not None for a in answers):
+        nums["samples_gap"] = samples_gap(answers)
+    return nums
 
 
 def verdict(nums: dict, limits: dict) -> dict:

@@ -9,7 +9,9 @@ leader, and every chunk whose gate a lane enters), counted on the
 reference's pixels and scaled to the slice's segments by tests a segment.
 Bytes: each scene table (spheres, triangles, gate boxes) read once a
 launch, and each frame's image and each launch's segment counts written
-once. The count is the same whatever the kernel does.
+once; for the adaptive kernel (``adaptive_bound_s``) each window's sums
+of the blocks it renders in place of the image. The count is the same
+whatever the kernel does.
 """
 
 from __future__ import annotations
@@ -43,4 +45,22 @@ def bound_s(tests_per_segment: dict, segments: float, launches: int, frames: int
     flop = segments * (tests_per_segment["sphere"] * FLOP_SPHERE_TEST
                        + tests_per_segment["triangle"] * FLOP_TRIANGLE_TEST)
     nbytes = launches * (table_bytes + 4 * width * height) + frames * 12 * width * height
+    return max(flop / p["flops"], nbytes / p["bytes_per_s"])
+
+
+def adaptive_bound_s(tests_per_segment: dict, segments: float, launches: int, windows: int,
+                     n_sel: int, block_pixels: int, table_bytes: int,
+                     device_name: str) -> Optional[float]:
+    """Seconds the card needs at least for ``segments`` segments over
+    ``launches`` launches of the adaptive kernel, each rendering ``n_sel``
+    blocks of ``block_pixels`` pixels over ``windows`` windows; None off
+    the table. Operations as ``bound_s`` counts them; bytes: each table,
+    and the block ids and cursors, read once a launch, and each window's
+    sums (12 B a pixel) and the segment counts (4 B a pixel) written once."""
+    p = peaks(device_name)
+    if p is None:
+        return None
+    flop = segments * (tests_per_segment["sphere"] * FLOP_SPHERE_TEST
+                       + tests_per_segment["triangle"] * FLOP_TRIANGLE_TEST)
+    nbytes = launches * (table_bytes + 8 * n_sel + n_sel * block_pixels * (12 * windows + 4))
     return max(flop / p["flops"], nbytes / p["bytes_per_s"])

@@ -16,6 +16,13 @@ passed, and closes when the last framebuffer begun before then is in
 host memory. After it closes, the program's state is freed and the plain
 reference (``benchmark/check.py``) judges the answers it picked.
 
+A traffic mix with ``"session": "adaptive"`` takes the path of the CLI's
+``--adaptive`` instead: ``render.adaptive.AdaptiveSession`` with the
+mix's ``RenderConfig``, one image a unit (``set_camera``, ``bootstrap``,
+``step`` while the next round fits the budget, ``fetch_framebuffer``),
+its samples counted from the session's ``spp_map`` and its launches by
+``kernels.trace.ADAPTIVE``; the warm step is one whole image.
+
 With ``--trace 0`` the result holds the cell's end-to-end metrics; with
 ``--trace 1`` its per-layer metrics, from a ``torch.profiler`` slice of
 the window (trace written to ``build/bench/``), the benchmark's own spans
@@ -44,6 +51,7 @@ ROOT = pathlib.Path(__file__).resolve().parents[1]
 if __name__ == "__main__":  # run as a script: import the checkout, not benchmark/
     sys.path[0] = str(ROOT)
 
+import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
 from benchmark import check as chk  # noqa: E402
@@ -91,15 +99,19 @@ class Program(NamedTuple):
     RenderConfig: type
     make_session: object
     kernel: object  # the trace kernel, with its launch counter
+    AdaptiveSession: type
+    adaptive_kernel: object  # the adaptive trace kernel, with its launch counter
 
 
 def load_program() -> Program:
     from myraytracer_tpu_torch.config import RenderConfig
     from myraytracer_tpu_torch.kernels import trace as ktrace
     from myraytracer_tpu_torch.render import dispatch
+    from myraytracer_tpu_torch.render.adaptive import AdaptiveSession
     from myraytracer_tpu_torch.scene import api
 
-    return Program(api, RenderConfig, dispatch.make_session, ktrace.KERNEL)
+    return Program(api, RenderConfig, dispatch.make_session, ktrace.KERNEL, AdaptiveSession,
+                   ktrace.ADAPTIVE)
 
 
 class Spans:
@@ -206,6 +218,99 @@ class Loop:
             return self.t_host
         return last_fetch
 
+    def begin_window(self, picker: tr.Picker) -> None:
+        self.picker, self.answers, self.samples_fetched = picker, 0, 0
+        self.latencies, self.frames_stepped = [], 0
+
+    def counts(self) -> dict:
+        return {"frames": self.frames_stepped}
+
+    def close(self) -> None:
+        if self.frames_fetched < self.frames or self.answers == 0:
+            self.fetch()  # the frames begun in the window that no fetch brought yet
+
+
+class AdaptiveLoop:
+    """The adaptive traffic on one ``AdaptiveSession``, as the CLI's
+    ``--adaptive`` runs it: one image a unit (a move to the next view, the
+    bootstrap, auto rounds while the next one fits the budget, a fetch),
+    and what each fetch brought to host memory. Each block's sample cursor
+    is tracked here from the spp map read after each fetch: the cursors
+    start at 0 when the session is made, advance by exactly the samples a
+    block got, and survive ``set_camera``.
+
+    The budget is spent on the loop's own count of the samples it asked
+    for, whole blocks counted as the session's ``samples_spent`` counts
+    them: the bootstrap's two covers of every block, F windows a call, and
+    ``n_sel`` blocks of F windows an auto round. On a sound session the
+    two counts agree, so the rounds are the CLI's; the check holds the
+    spp map to this count (``check.samples_gap``)."""
+
+    COVERS = 2  # the bootstrap's covers: AdaptiveSession.bootstrap's default, the CLI's
+
+    def __init__(self, session, views: list, view0: int, spp: int, budget: int, spans: Spans,
+                 picker: tr.Picker):
+        self.s, self.views, self.next_view = session, views, view0
+        self.spp, self.budget = spp, budget
+        self.spans, self.picker = spans, picker
+        self.view = None
+        self.cursor = np.zeros((session.blocks_y, session.blocks_x), np.int64)
+        self.segs_total = 0.0  # the program's segment total at the last read
+        self.rounds = 0  # auto rounds stepped
+        self.asked = 0  # samples this image asked for, whole blocks counted
+        self.samples_fetched = 0
+        self.latencies = []  # none: the mix is measured by its rate
+        self.t_host = None
+        self.answers = 0
+
+    def unit(self, last_fetch: float = 0.0) -> float:
+        """One image; returns the time of its fetch."""
+        self.view = self.next_view
+        self.next_view = (self.next_view + 1) % len(self.views)
+        with self.spans("set_camera"):
+            self.s.set_camera(self.views[self.view])
+        with self.spans("bootstrap"):
+            self.s.bootstrap()
+        s = self.s
+        window = s.windows * self.spp * s.block_w * s.block_h
+        self.asked = -(-self.COVERS // s.windows) * s.n_blocks * window
+        cost = s.n_sel * window
+        while self.asked + cost <= self.budget:
+            with self.spans("step"):
+                s.step()
+            self.rounds += 1
+            self.asked += cost
+        self.fetch()
+        return self.t_host
+
+    def fetch(self) -> None:
+        s = self.s
+        with self.spans("fetch"):
+            fb = s.fetch_framebuffer().cpu().numpy()
+        self.t_host = time.perf_counter()
+        spp = s.spp_map
+        count = spp[::s.block_h, ::s.block_w].astype(np.int64)
+        samples = int(spp.sum(dtype=np.int64))
+        segs = s.segments_traced
+        self.samples_fetched += samples
+        self.answers += 1
+        blocks = chk.Blocks(self.cursor.copy(), count, s.block_w, s.block_h, samples, self.asked)
+        self.picker.offer(chk.Answer(self.view, sample_start=0, frames=0, spp=self.spp,
+                                     segments=segs - self.segs_total, framebuffer=fb,
+                                     blocks=blocks))
+        self.cursor += count
+        self.segs_total = segs
+
+    def begin_window(self, picker: tr.Picker) -> None:
+        self.picker, self.answers, self.samples_fetched = picker, 0, 0
+        self.rounds = 0
+
+    def counts(self) -> dict:
+        return {"rounds": self.rounds}
+
+    def close(self) -> None:
+        """Nothing is left to fetch: every image ends in its fetch."""
+
 
 def _sync(device) -> None:
     if device.type == "cuda":
@@ -223,13 +328,24 @@ def run_cell(cell: registry.Cell, seed: int, seconds: float, trace: bool, progra
     place, under ``control_checks``."""
     cfg, traffic = cell.config, cell.traffic
     width, height, depth = int(cfg["width"]), int(cfg["height"]), int(cfg["max_depth"])
-    spp = tr.samples_per_frame(traffic, cfg)
     world = world_mod.build_world(cfg, program.api)
     views = tr.views(cfg, traffic, program.api)
-    rc = program.RenderConfig(width=width, height=height, samples_per_frame=spp,
-                              ray_depth=depth, seed=int(seed), backend=backend,
-                              frame_batch=int(traffic["frame_batch"]), nee=bool(cfg["nee"]))
-    session = program.make_session(world, rc)
+    adaptive = tr.adaptive(traffic)
+    if adaptive:
+        # The CLI's --adaptive --spp S --frames N (cli.py:_run_adaptive).
+        spp = int(traffic["samples_per_window"])
+        rc = program.RenderConfig(width=width, height=height, samples_per_frame=spp,
+                                  ray_depth=depth, seed=int(seed), backend=backend,
+                                  frame_batch=int(traffic["windows_per_round"]),
+                                  max_frames=int(traffic["budget_frames"]),
+                                  nee=bool(cfg["nee"]))
+        session = program.AdaptiveSession(world, rc, n_sel=int(traffic["blocks_per_round"]))
+    else:
+        spp = tr.samples_per_frame(traffic, cfg)
+        rc = program.RenderConfig(width=width, height=height, samples_per_frame=spp,
+                                  ray_depth=depth, seed=int(seed), backend=backend,
+                                  frame_batch=int(traffic["frame_batch"]), nee=bool(cfg["nee"]))
+        session = program.make_session(world, rc)
     if on_session is not None:
         on_session(session)
     device = session.device
@@ -237,23 +353,35 @@ def run_cell(cell: registry.Cell, seed: int, seconds: float, trace: bool, progra
         torch.cuda.reset_peak_memory_stats(device)
     spans = Spans()
     picker = tr.Picker(seed, traffic["check"]["answers"], traffic["check"]["pick"])
-    loop = Loop(session, traffic, views, tr.first_view(seed, len(views)), spp, width, height,
-                spans, tr.Picker(seed, 0, "last"))
-
-    # Set-up's warm step, of the cell's own shape, through every call the
-    # window makes; the published camera's reset leaves the window a clean
-    # accumulation.
-    if traffic["move_each_step"]:
-        loop.move()
-    loop.step()
-    loop.fetch()
-    if not traffic["move_each_step"]:
-        loop.move(world.camera)
+    view0 = tr.first_view(seed, len(views))
+    if adaptive:
+        loop = AdaptiveLoop(session, views, view0, spp,
+                            int(traffic["budget_frames"]) * spp * width * height, spans,
+                            tr.Picker(seed, 0, "last"))
+        counter = program.adaptive_kernel
+        launch_shape = types.SimpleNamespace(windows=session.windows, n_sel=session.n_sel,
+                                             block_pixels=session.block_w * session.block_h)
+        # Set-up's warm step: one whole image, through every call the window
+        # makes.
+        loop.unit()
+    else:
+        loop = Loop(session, traffic, views, view0, spp, width, height, spans,
+                    tr.Picker(seed, 0, "last"))
+        counter, launch_shape = program.kernel, None
+        # Set-up's warm step, of the cell's own shape, through every call the
+        # window makes; the published camera's reset leaves the window a clean
+        # accumulation.
+        if traffic["move_each_step"]:
+            loop.move()
+        loop.step()
+        loop.fetch()
+        if not traffic["move_each_step"]:
+            loop.move(world.camera)
     _sync(device)
-    loop.picker, loop.answers, loop.samples_fetched = picker, 0, 0
-    loop.latencies, loop.frames_stepped = [], 0
+    loop.begin_window(picker)
     spans.rows.clear()
-    launches0 = program.kernel.launches
+    launches0 = counter.launches
+    count_keys = ("segs", "launches", *loop.counts())
 
     prof = profiling.Slice(device.type == "cuda") if trace else None
     if prof is not None:
@@ -268,8 +396,8 @@ def run_cell(cell: registry.Cell, seed: int, seconds: float, trace: bool, progra
         if prof is not None and not piece and time.perf_counter() - t0 >= piece_at \
                 and sum(x["dev"].window_s for x in pieces) < profiling.MIN_S:
             _sync(device)
-            piece = dict(segs=session.segments_traced, frames=loop.frames_stepped,
-                         launches=program.kernel.launches)
+            piece = dict(segs=session.segments_traced, launches=counter.launches,
+                         **loop.counts())
             prof.start()
             spans.marking = True
             piece["t0"] = time.perf_counter()
@@ -280,23 +408,22 @@ def run_cell(cell: registry.Cell, seed: int, seconds: float, trace: bool, progra
             spans.marking = False
             piece.update(t1=time.perf_counter(), dev=dev,
                          segs=session.segments_traced - piece["segs"],
-                         frames=loop.frames_stepped - piece["frames"],
-                         launches=program.kernel.launches - piece["launches"])
+                         launches=counter.launches - piece["launches"],
+                         **{k: v - piece[k] for k, v in loop.counts().items()})
             # A piece whose trace lost records of the card is left out.
             if not prof.cuda or dev.trace_events == piece["launches"]:
                 pieces.append(piece)
             piece = {}
             piece_at = time.perf_counter() - t0 + profiling.PIECE_S
-    if loop.frames_fetched < loop.frames or loop.answers == 0:
-        loop.fetch()  # the frames begun in the window that no fetch brought yet
+    loop.close()
     t_end = loop.t_host
 
     memory_peak = torch.cuda.max_memory_allocated(device) if device.type == "cuda" else 0
     device_name = torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu"
     window = types.SimpleNamespace(
         seconds=t_end - t0, samples=loop.samples_fetched, answers=loop.answers,
-        latencies=loop.latencies, setup_s=setup_s, frames=loop.frames_stepped,
-        launches=program.kernel.launches - launches0)
+        latencies=loop.latencies, setup_s=setup_s, launches=counter.launches - launches0,
+        **loop.counts())
     answers = picker.answers()
     del session, loop, picker
     gc.collect()
@@ -316,8 +443,8 @@ def run_cell(cell: registry.Cell, seed: int, seconds: float, trace: bool, progra
     control_checks = None
     if control:
         low = chk.Reference(cfg, traffic, seed, device, dtype=torch.bfloat16)
-        control_checks = chk.verdict(chk.control_numbers(low.read(answers, ix, iy), reading),
-                                     cell.limits)
+        control_checks = chk.verdict(chk.control_numbers(low.read(answers, ix, iy), reading,
+                                                         answers), cell.limits)
 
     device_info = {"platform": "gpu" if device.type == "cuda" else device.type,
                    "kind": device_name, "count": 1, "memory_peak_bytes": int(memory_peak)}
@@ -331,7 +458,7 @@ def run_cell(cell: registry.Cell, seed: int, seconds: float, trace: bool, progra
         # A trace without the card's activity has no device time to read.
         dev = profiling.merge([x["dev"] for x in pieces]) \
             if pieces and device.type == "cuda" else None
-        counts = {k: sum(x[k] for x in pieces) for k in ("segs", "frames", "launches")}
+        counts = {k: sum(x[k] for x in pieces) for k in count_keys}
         tests = reading.tests
         ctx = types.SimpleNamespace(
             cell=cell.name, window=window, width=width, height=height, device_name=device_name,
@@ -339,7 +466,7 @@ def run_cell(cell: registry.Cell, seed: int, seconds: float, trace: bool, progra
             slice_counts=counts if dev is not None else None,
             tests_per_segment=({k: tests[k] / reading.segments for k in ("sphere", "triangle")}
                                if tests else None),
-            table_bytes=ref.tables.table_bytes)
+            table_bytes=ref.tables.table_bytes, adaptive=launch_shape)
         metrics = _read_metrics(reg, cell.per_layer, ctx)
         if dev is not None:
             device_info.update(busy_s=dev.busy_s, window_s=dev.window_s)

@@ -14,6 +14,7 @@ if str(ROOT) not in sys.path:
 from benchmark import registry, run  # noqa: E402
 
 CELLS = ("final.offline", "cornell.offline", "final.progressive", "final.orbit")
+ADAPTIVE_CELLS = ("final.adaptive",)
 SEED = 2**31 + 77
 
 
@@ -41,3 +42,21 @@ def run_tiny(reg, program, name, seconds=0.6, seed=SEED, **kw):
     """One run of the tiny cell on the CPU through ``run.run_cell``."""
     return run.run_cell(tiny(reg.cell(name)), seed, seconds, False, program, backend="torch",
                         reg=reg, **kw)
+
+
+def tiny_adaptive(cell, width=96, height=40, spp=2, budget=8, windows=2, depth=6):
+    """An adaptive ``cell`` at a test's size: 2 x 2 blocks of 64 x 32, the
+    right and bottom ones hanging over the image's edge, one block a round,
+    ``windows`` windows of ``spp`` samples a launch and a budget of
+    ``budget`` frames; every pixel checked."""
+    cfg = dict(cell.config, width=width, height=height, max_depth=depth)
+    tf = dict(cell.traffic, samples_per_window=spp, budget_frames=budget,
+              windows_per_round=windows, check=dict(cell.traffic["check"], pixels=width * height))
+    return cell._replace(config=cfg, traffic=tf)
+
+
+def run_tiny_adaptive(reg, program, name="final.adaptive", seconds=0.3, seed=SEED, **kw):
+    """One run of the tiny adaptive cell on the CPU through ``run.run_cell``:
+    the warm image, then at least one image in the window."""
+    return run.run_cell(tiny_adaptive(reg.cell(name)), seed, seconds, False, program,
+                        backend="torch", reg=reg, **kw)

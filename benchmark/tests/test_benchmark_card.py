@@ -7,11 +7,12 @@ import sys
 
 import pytest
 
-from conftest import CELLS, ROOT
+from benchmark import run
+from conftest import ADAPTIVE_CELLS, CELLS, ROOT
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("name", CELLS)
+@pytest.mark.parametrize("name", CELLS + ADAPTIVE_CELLS)
 def test_cell_runs_on_the_card(name):
     torch = pytest.importorskip("torch")
     if not torch.cuda.is_available():
@@ -23,4 +24,5 @@ def test_cell_runs_on_the_card(name):
     out = json.loads(proc.stdout.strip().splitlines()[-1])
     assert out["correct"] is True
     assert out["device"]["platform"] == "gpu"
-    assert proc.stderr.strip().splitlines()[-1].startswith("check segs_rel_gap")
+    checks = run.check_lines(out["checks"])
+    assert proc.stderr.strip().splitlines()[-len(checks):] == checks

@@ -9,7 +9,7 @@ import sys
 import pytest
 
 from benchmark import registry
-from conftest import CELLS, ROOT
+from conftest import ADAPTIVE_CELLS, CELLS, ROOT
 
 
 def test_benchmark_json_names_every_file(reg):
@@ -24,20 +24,39 @@ def test_benchmark_json_names_every_file(reg):
         assert callable(reg.reader(m["name"]))
 
 
-@pytest.mark.parametrize("name", CELLS)
+# Each cell's per-layer metrics, as BENCHMARK.json lists them.
+UNIFORM_LAYER = {"session.step_host_ms", "session.ops_ms_per_frame", "trace.launches_per_frame",
+                 "trace.mrays_per_s", "trace_spheres_roofline", "device.idle_pct",
+                 "session.host_syncs_per_frame", "session.blend_host_ms", "trace.launch_host_ms",
+                 "setup.program_s"}
+LAYER = {
+    "final.offline": UNIFORM_LAYER,
+    "cornell.offline": UNIFORM_LAYER,
+    "final.progressive": UNIFORM_LAYER,
+    "final.orbit": {"session.fetch_ms.orbit", "session.ops_ms_per_frame.orbit",
+                    "trace.mrays_per_s.orbit", "device.idle_pct.orbit",
+                    "session.host_syncs_per_frame.orbit", "session.set_camera_host_ms.orbit",
+                    "trace.launch_host_ms.orbit", "setup.program_s"},
+    "final.adaptive": {"trace.mrays_per_s.adaptive", "device.idle_pct.adaptive",
+                       "adaptive.round_host_ms", "adaptive.ops_ms_per_round",
+                       "trace_adaptive_roofline"},
+}
+E2E = {"final.orbit": {"frame_ms_p95", "setup_s"},
+       "final.adaptive": {"msamples_per_s.adaptive", "setup_s"}}
+
+
+@pytest.mark.parametrize("name", CELLS + ADAPTIVE_CELLS)
 def test_cell_lookup(reg, name):
     cell = reg.cell(name)
     assert cell.chips == 1
     e2e = {m["name"] for m in cell.end_to_end}
-    orbit = name == "final.orbit"
-    assert e2e == ({"frame_ms_p95", "setup_s"} if orbit else {"msamples_per_s", "setup_s"})
-    layer = {m["name"] for m in cell.per_layer}
+    assert e2e == E2E.get(name, {"msamples_per_s", "setup_s"})
     assert all(m["moves"] in e2e for m in cell.per_layer)
-    if orbit:
-        assert layer == {"session.fetch_ms.orbit", "session.ops_ms_per_frame.orbit",
-                         "trace.mrays_per_s.orbit", "device.idle_pct.orbit"}
-    else:
-        assert len(layer) == 6 and "trace_spheres_roofline" in layer
+    assert {m["name"] for m in cell.per_layer} == LAYER[name]
+
+
+def test_every_cell_is_tested(reg):
+    assert {w["name"] for w in reg.bench["workloads"]} == set(CELLS + ADAPTIVE_CELLS) == set(LAYER)
 
 
 def test_unknown_cell(reg):

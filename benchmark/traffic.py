@@ -11,6 +11,14 @@ which turntable views it moves through (``view_stride``: every n-th),
 and what the check compares (``check``: how many answers, picked how, and
 the pixels a picked answer is compared at).
 
+A mix with ``"session": "adaptive"`` drives the adaptive session instead
+(``render/adaptive.py``), one image a unit: it sets the samples of a
+window (``samples_per_window``), the image's budget in uniform frames of
+that many samples (``budget_frames``), the windows a round renders in one
+launch (``windows_per_round``) and the blocks a round picks
+(``blocks_per_round``), these two 0 for the session's own choice, with
+``view_stride`` and ``check`` as above.
+
 The seed picks the turntable's first view, the answers that are checked
 and the pixels they are checked at; it sets nothing else, so every seed
 gives a run the same work.
@@ -28,6 +36,11 @@ _VIEW, _ANSWERS, _PIXELS = 1, 2, 3
 
 def rng(seed: int, stream: int) -> np.random.Generator:
     return np.random.default_rng([int(seed) & (2**64 - 1), stream])
+
+
+def adaptive(traffic: dict) -> bool:
+    """Whether the mix drives the adaptive session."""
+    return traffic.get("session") == "adaptive"
 
 
 def samples_per_frame(traffic: dict, cfg: dict) -> int:
