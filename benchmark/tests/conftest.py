@@ -15,6 +15,7 @@ from benchmark import registry, run  # noqa: E402
 
 CELLS = ("final.offline", "cornell.offline", "final.progressive", "final.orbit")
 ADAPTIVE_CELLS = ("final.adaptive",)
+MESH_CELLS = ("mesh5.offline",)
 SEED = 2**31 + 77
 
 
@@ -42,6 +43,23 @@ def run_tiny(reg, program, name, seconds=0.6, seed=SEED, **kw):
     """One run of the tiny cell on the CPU through ``run.run_cell``."""
     return run.run_cell(tiny(reg.cell(name)), seed, seconds, False, program, backend="torch",
                         reg=reg, **kw)
+
+
+def tiny_mesh(cell, width=48, height=32, spp=2, cut=3):
+    """A mesh ``cell`` at a test's size: its image and samples cut, every
+    icosphere ``cut`` subdivisions coarser (``mesh:5``'s scene becomes
+    ``mesh:2``'s, 414 triangles, under the program's CPU triangle BVH's
+    512), its depth kept, and every pixel checked."""
+    cell = tiny(cell, width, height, spp, cell.config["max_depth"])
+    scene = dict(cell.config["scene"], icospheres=[
+        dict(s, subdivisions=s["subdivisions"] - cut) for s in cell.config["scene"]["icospheres"]])
+    return cell._replace(config=dict(cell.config, scene=scene))
+
+
+def run_tiny_mesh(reg, program, name="mesh5.offline", seconds=0.6, seed=SEED, **kw):
+    """One run of the tiny mesh cell on the CPU through ``run.run_cell``."""
+    return run.run_cell(tiny_mesh(reg.cell(name)), seed, seconds, False, program,
+                        backend="torch", reg=reg, **kw)
 
 
 def tiny_adaptive(cell, width=96, height=40, spp=2, budget=8, windows=2, depth=6):

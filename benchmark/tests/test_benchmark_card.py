@@ -8,11 +8,11 @@ import sys
 import pytest
 
 from benchmark import run
-from conftest import ADAPTIVE_CELLS, CELLS, ROOT
+from conftest import ADAPTIVE_CELLS, CELLS, MESH_CELLS, ROOT
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("name", CELLS + ADAPTIVE_CELLS)
+@pytest.mark.parametrize("name", CELLS + ADAPTIVE_CELLS + MESH_CELLS)
 def test_cell_runs_on_the_card(name):
     torch = pytest.importorskip("torch")
     if not torch.cuda.is_available():

@@ -64,4 +64,4 @@ def test_no_file_of_the_benchmark_imports_jax():
 def test_only_run_loads_the_program():
     users = {p.relative_to(BENCH).as_posix() for p in BENCH.rglob("*.py")
              if "myraytracer_tpu_torch" in {n.split(".")[0] for n in _imports(p)}}
-    assert users <= {"run.py", "tests/test_benchmark_run.py"}
+    assert users <= {"run.py", "tests/test_benchmark_run.py", "tests/test_benchmark_mesh.py"}

@@ -9,7 +9,7 @@ import sys
 import pytest
 
 from benchmark import registry
-from conftest import ADAPTIVE_CELLS, CELLS, ROOT
+from conftest import ADAPTIVE_CELLS, CELLS, MESH_CELLS, ROOT
 
 
 def test_benchmark_json_names_every_file(reg):
@@ -32,6 +32,8 @@ UNIFORM_LAYER = {"session.step_host_ms", "session.ops_ms_per_frame", "trace.laun
 LAYER = {
     "final.offline": UNIFORM_LAYER,
     "cornell.offline": UNIFORM_LAYER,
+    "mesh5.offline": {m + ".mesh5" for m in UNIFORM_LAYER - {"setup.program_s"}}
+                     | {"setup.program_s"},
     "final.progressive": UNIFORM_LAYER,
     "final.orbit": {"session.fetch_ms.orbit", "session.ops_ms_per_frame.orbit",
                     "trace.mrays_per_s.orbit", "device.idle_pct.orbit",
@@ -42,10 +44,11 @@ LAYER = {
                        "trace_adaptive_roofline"},
 }
 E2E = {"final.orbit": {"frame_ms_p95", "setup_s"},
-       "final.adaptive": {"msamples_per_s.adaptive", "setup_s"}}
+       "final.adaptive": {"msamples_per_s.adaptive", "setup_s"},
+       "mesh5.offline": {"msamples_per_s.mesh5", "setup_s"}}
 
 
-@pytest.mark.parametrize("name", CELLS + ADAPTIVE_CELLS)
+@pytest.mark.parametrize("name", CELLS + ADAPTIVE_CELLS + MESH_CELLS)
 def test_cell_lookup(reg, name):
     cell = reg.cell(name)
     assert cell.chips == 1
@@ -56,7 +59,8 @@ def test_cell_lookup(reg, name):
 
 
 def test_every_cell_is_tested(reg):
-    assert {w["name"] for w in reg.bench["workloads"]} == set(CELLS + ADAPTIVE_CELLS) == set(LAYER)
+    assert {w["name"] for w in reg.bench["workloads"]} == set(CELLS + ADAPTIVE_CELLS + MESH_CELLS) \
+        == set(LAYER)
 
 
 def test_unknown_cell(reg):

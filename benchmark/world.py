@@ -8,8 +8,10 @@ system under test, and with the reference's frozen copy
 A configuration's ``scene`` holds any of: ``sphere_field`` (the RTiOW final
 scene's generator, copied from ``myraytracer_tpu_torch/scene/presets.py:
 sphere_field`` at commit 32ae5bc), ``spheres``, ``quads`` and ``boxes``
-(two and twelve triangles, from the copied ``meshgen``), with materials
-inline or named under ``materials``.
+(two and twelve triangles, from the copied ``meshgen``) and ``icospheres``
+(``center``, ``radius`` and ``subdivisions``: ``meshgen.icosphere``'s
+20 x 4^n triangles), with materials inline or named under ``materials``.
+Meshes are built in that order: quads, boxes, icospheres.
 """
 
 from __future__ import annotations
@@ -99,6 +101,9 @@ def build_world(cfg: dict, api):
     for b in scene.get("boxes", ()):
         v, f = _box(b)
         meshes.append(api.Mesh(v, f, _material(b["material"], api, named)))
+    for s in scene.get("icospheres", ()):
+        v, f = meshgen.icosphere(tuple(s["center"]), s["radius"], int(s["subdivisions"]))
+        meshes.append(api.Mesh(v, f, _material(s["material"], api, named)))
     background = cfg["background"]
     ambient = None if background == "sky" else tuple(background)
     return api.World(spheres=spheres, camera=camera(cfg, api), meshes=meshes, ambient=ambient)
