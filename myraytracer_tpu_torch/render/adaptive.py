@@ -17,7 +17,11 @@ r < 2 score +inf (the bootstrap covers every block twice first).
 The statistics are held bitwise to the JAX package's on the same inputs:
 the fold and the scores reproduce the arithmetic XLA's CPU backend
 compiles (its fused multiply-adds, its reduction order), and the selection
-breaks ties toward the lowest block id as ``lax.top_k`` does.
+breaks ties toward the lowest block id as ``lax.top_k`` does. A state on
+the CPU takes the plain functions here (``_update_stats``,
+``_block_scores``, ``select_blocks``); a state on a CUDA device takes their
+kernels (``kernels.adaptive``: one launch to score and pick a round, one
+to fold a call's windows), bitwise the plain functions.
 
 Tile sharding (``config.shard = "tiles"``, a mesh of ``ndev > 1``
 entries): entry d owns the contiguous block-id stripe ``[d*local_nb,
@@ -42,6 +46,7 @@ import torch
 
 from myraytracer_tpu_torch.config import RenderConfig
 from myraytracer_tpu_torch.core import rng as crng
+from myraytracer_tpu_torch.kernels import adaptive as kadaptive
 from myraytracer_tpu_torch.parallel import sharding
 from myraytracer_tpu_torch.render import integrator
 from myraytracer_tpu_torch.render.camera import pack_camera
@@ -241,6 +246,19 @@ def select_blocks(scores: torch.Tensor, n_sel: int) -> torch.Tensor:
     return torch.sort(scores, descending=True, stable=True).indices[:n_sel]
 
 
+def pick_blocks(s1, s2, r_b, n_sel: int, n_live: int, base: int, sentinel: int):
+    """A round's picks from a state's rows: the candidates are rows ``0 ..
+    nb1 - 2`` (block ids ``base ..``, the first ``n_live`` alive; dead ids
+    score -inf), the top ``n_sel`` by ``select_blocks``. Returns ``(rows,
+    render ids)``, a dead id's row the spare ``nb1 - 1`` and its render id
+    ``sentinel``. The plain version of ``kernels.adaptive.select``."""
+    n_cand = s1.shape[0] - 1
+    scores = _block_scores(s1, s2, r_b)[:n_cand]
+    alive = torch.arange(n_cand, device=scores.device) < n_live
+    top = select_blocks(torch.where(alive, scores, -torch.inf), n_sel)
+    return torch.where(alive[top], top, n_cand), torch.where(alive[top], base + top, sentinel)
+
+
 def state_from_numpy(arrays, device="cpu"):
     """The port's adaptive state from the JAX session's six state arrays
     (fbB, s1, s2, n_b, r_b, cursor; ``render/adaptive.py:389-396``) or a
@@ -394,13 +412,18 @@ class AdaptiveSession:
     def _fold(self, state, render, scene, lidx, render_ids):
         """Render ``render_ids`` (sentinel allowed) and fold the F window
         sums into the statistics rows ``lidx`` of ``state`` in sample
-        order: bitwise what F separate rounds produce."""
+        order: bitwise what F separate rounds produce. A CUDA state folds
+        in one launch."""
         samp0 = state[5][lidx]  # a sentinel reads the spare row's
         sums, segs = render(scene, self.key, render_ids, samp0)
         if self.windows == 1:
             sums = sums[None]
-        for sums_w in sums:
-            state = _update_stats(*state, lidx, sums_w, self.config.samples_per_frame)
+        k = self.config.samples_per_frame
+        if state[0].device.type == "cpu":
+            for sums_w in sums:
+                state = _update_stats(*state, lidx, sums_w, k)
+        else:
+            state = kadaptive.fold(*state, lidx, sums, k)
         if profiling.debug_nans():
             profiling.check_finite(state[0], f"adaptive round {self.rounds + self.windows}")
         self._segs_pending.append(segs.to(self.device))
@@ -438,22 +461,26 @@ class AdaptiveSession:
             self._fold_stripe(d, torch.where(owned, gid - base, self.local_nb),
                               torch.where(owned, gid, self.n_blocks))
 
+    def _pick(self, state, base: int, n_sel: int):
+        """Score the candidate rows of ``state`` (the block ids ``base ..``;
+        ids past the grid are dead) and pick the top ``n_sel``: ``(rows,
+        render ids)``, a dead id on the spare row and the sentinel. A CUDA
+        state picks in one launch, a CPU state by the plain functions."""
+        _, s1, s2, _, r_b, _ = state
+        n_live = min(self.local_nb, max(0, self.n_blocks - base))
+        pick = pick_blocks if s1.device.type == "cpu" else kadaptive.select
+        return pick(s1, s2, r_b, n_sel, n_live, base, self.n_blocks)
+
     def round_auto(self) -> None:
         """One adaptive round: score, select the top n_sel (in each stripe,
         its top n_sel_local), render, fold."""
         if self.ndev == 1:
-            _, s1, s2, _, r_b, _ = self._state
-            scores = _block_scores(s1, s2, r_b)[: self.n_blocks]
-            self.round_ids(select_blocks(scores, self.n_sel))
+            self.fold_round(*self._pick(self._state, 0, self.n_sel))
             return
         for d in self.mesh.local:
-            _, s1, s2, _, r_b, _ = self._state[d]
-            scores = _block_scores(s1, s2, r_b)[: self.local_nb]
-            ids = d * self.local_nb + torch.arange(self.local_nb, device=scores.device)
-            alive = ids < self.n_blocks
-            top = select_blocks(torch.where(alive, scores, -torch.inf), self.n_sel_local)
-            self._fold_stripe(d, torch.where(alive[top], top, self.local_nb),
-                              torch.where(alive[top], ids[top], self.n_blocks))
+            with sharding.on_device(self.mesh.device_of(d)):
+                picks = self._pick(self._state[d], d * self.local_nb, self.n_sel_local)
+            self._fold_stripe(d, *picks)
 
     def set_camera(self, cam: api.Camera) -> None:
         """Move the runtime camera and restart the adaptive schedule: the
