@@ -10,6 +10,8 @@ same schedule. On the card the CUDA adaptive kernel is held to the plain
 version here (tests/test_torch_gpu.py, chip_smoke.py).
 """
 
+import cpu_share  # noqa: F401  (first: this process's share of the CPU)
+
 import jax
 import jax.numpy as jnp
 import numpy as np

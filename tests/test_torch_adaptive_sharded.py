@@ -14,6 +14,8 @@ runs on the virtual CPU devices of ``tests/conftest.py``.
 * Checkpoints resume exactly and refuse another mesh.
 """
 
+import cpu_share  # noqa: F401  (first: this process's share of the CPU)
+
 import jax
 import numpy as np
 import pytest

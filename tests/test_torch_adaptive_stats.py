@@ -5,6 +5,8 @@ on the card by ``tests/test_torch_adaptive_stats_gpu.py``), whose wrappers
 refuse what they do not take rather than fall back. The select kernel's
 rank rule is written here in numpy and held to ``select_blocks``' order."""
 
+import cpu_share  # noqa: F401  (first: this process's share of the CPU)
+
 import re
 
 import numpy as np

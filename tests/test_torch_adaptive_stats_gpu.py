@@ -16,6 +16,8 @@ sessions on final, flat and over three stripes of the card, against the
 plain statistics replayed on the CPU from the same window sums.
 """
 
+import cpu_share  # noqa: F401  (first: this process's share of the CPU)
+
 import numpy as np
 import pytest
 import torch

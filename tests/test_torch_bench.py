@@ -8,6 +8,8 @@ runs the plain integrator (``BENCH_BACKEND=torch``) at a tiny size, and
 the default backend, which is the card, must refuse to run without one.
 """
 
+import cpu_share  # noqa: F401  (first: this process's share of the CPU)
+
 import importlib.util
 import json
 import pathlib

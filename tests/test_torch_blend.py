@@ -4,6 +4,8 @@
 ``tests/test_torch_blend_gpu.py``), whose wrapper refuses what it does not
 take rather than fall back."""
 
+import cpu_share  # noqa: F401  (first: this process's share of the CPU)
+
 import re
 
 import numpy as np

@@ -13,6 +13,8 @@ the inputs are made with numpy, with zeros, subnormals and large
 magnitudes among the radiance.
 """
 
+import cpu_share  # noqa: F401  (first: this process's share of the CPU)
+
 import numpy as np
 import pytest
 import torch

@@ -14,6 +14,8 @@ BVH (``scene/compile.py``), as the JAX jnp session's does, and
 * only the ``torch`` backend gets a BVH, and only past 512 triangles.
 """
 
+import cpu_share  # noqa: F401  (first: this process's share of the CPU)
+
 import numpy as np
 import pytest
 import torch

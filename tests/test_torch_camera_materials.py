@@ -6,6 +6,8 @@ FMAs, and the libms of ``cos``/``sin``/``exp2``/``log2`` differ by a few
 ulp (rtol 1e-6 for rays, 1e-5 for scatter).
 """
 
+import cpu_share  # noqa: F401  (first: this process's share of the CPU)
+
 import jax.numpy as jnp
 import numpy as np
 import pytest

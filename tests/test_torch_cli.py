@@ -1,5 +1,7 @@
 """The PyTorch port's CLI: adaptive sampling and frame batching."""
 
+import cpu_share  # noqa: F401  (first: this process's share of the CPU)
+
 import json
 
 import numpy as np

@@ -11,6 +11,8 @@ tests/test_torch_cli.py holds the denoiser's). Port against port is
 bitwise.
 """
 
+import cpu_share  # noqa: F401  (first: this process's share of the CPU)
+
 import json
 import sys
 import time

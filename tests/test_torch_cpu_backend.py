@@ -11,6 +11,8 @@ verdict), ``--backend cpu`` refuses what it cannot render, and adaptive
 sampling refuses the backend.
 """
 
+import cpu_share  # noqa: F401  (first: this process's share of the CPU)
+
 import logging
 
 import numpy as np

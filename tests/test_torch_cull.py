@@ -23,6 +23,8 @@ in the slow tier (``tests/test_pallas.py``); these use its tables and its
 plain integrator instead.
 """
 
+import cpu_share  # noqa: F401  (first: this process's share of the CPU)
+
 import numpy as np
 import pytest
 import torch

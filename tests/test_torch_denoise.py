@@ -23,6 +23,8 @@ carried across with ``scene_from_numpy``) go through
   the auto mode's noise-driven count, a constant image as a fixed point.
 """
 
+import cpu_share  # noqa: F401  (first: this process's share of the CPU)
+
 import dataclasses
 
 import jax

@@ -16,6 +16,8 @@ These are the JAX package's ``tests/test_furnace.py`` on the port's
 plain integrator (``--backend torch``).
 """
 
+import cpu_share  # noqa: F401  (first: this process's share of the CPU)
+
 import numpy as np
 import pytest
 

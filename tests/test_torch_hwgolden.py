@@ -9,6 +9,8 @@ mismatch called a code change under the same torch, CUDA and nvcc
 versions and drift under others.
 """
 
+import cpu_share  # noqa: F401  (first: this process's share of the CPU)
+
 import numpy as np
 import pytest
 

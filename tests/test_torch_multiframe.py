@@ -9,6 +9,8 @@ card the CUDA kernel's frame buckets are held bitwise to its single
 launches (tests/test_torch_gpu.py, chip_smoke.py).
 """
 
+import cpu_share  # noqa: F401  (first: this process's share of the CPU)
+
 import numpy as np
 import pytest
 import torch

@@ -9,6 +9,8 @@ nothing. Every process has its own timeout and is killed when it runs
 out, so a hung collective fails the test instead of stalling the suite.
 """
 
+import cpu_share  # noqa: F401  (first: this process's share of the CPU)
+
 import os
 import pathlib
 import socket
@@ -39,11 +41,11 @@ def run_ranks(tmp, argv_of):
     test, and both are killed. The logs go to files, so a full pipe cannot
     stall a rank inside a collective."""
     spec = f"127.0.0.1:{_free_port()},2"
-    # Two threads a rank: the ranks share the host with the test's own
-    # process (and other workers), and torch's spinning thread pools slow
-    # down many times over when they ask for more threads than there are
-    # cores.
-    env = {**os.environ, "PYTHONPATH": str(REPO), "OMP_NUM_THREADS": "2"}
+    # The ranks inherit this process's share of the CPU (``cpu_share``):
+    # they share the host with the test's own process and other workers,
+    # and torch's spinning thread pools slow down many times over when
+    # they ask for more threads than there are cores.
+    env = {**os.environ, "PYTHONPATH": str(REPO)}
     logs = [tmp / f"rank{r}-{_free_port()}.log" for r in (0, 1)]
     procs = []
     for r, log in enumerate(logs):

@@ -10,6 +10,8 @@ the vectors are held to the samplers' tolerance of
 bitwise to the port's own transform of JAX's draws.
 """
 
+import cpu_share  # noqa: F401  (first: this process's share of the CPU)
+
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -9,6 +9,8 @@ materials, camera), the compiled scene with its triangle BVH (every leaf and
 the fingerprint) and the reference pool layout.
 """
 
+import cpu_share  # noqa: F401  (first: this process's share of the CPU)
+
 import logging
 import subprocess
 

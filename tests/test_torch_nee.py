@@ -23,6 +23,8 @@ plain version is held against the JAX package:
   (segments 728 vs 727) / 24x16 1.0 (0.943 bit for bit, 2880 = 2880).
 """
 
+import cpu_share  # noqa: F401  (first: this process's share of the CPU)
+
 import math
 
 import numpy as np

@@ -1,5 +1,7 @@
 """Packaging of the PyTorch port: no JAX at run time, and the kernel build."""
 
+import cpu_share  # noqa: F401  (first: this process's share of the CPU)
+
 import os
 import pathlib
 import subprocess

@@ -12,6 +12,8 @@ eagerly with every pixel within that tolerance and equal segments
 (final 24x16: 0.977 bit for bit, 2024 = 2024).
 """
 
+import cpu_share  # noqa: F401  (first: this process's share of the CPU)
+
 import numpy as np
 import pytest
 import torch

@@ -11,6 +11,8 @@ small reference; it must write no file, and its uniform RMSE must fall as
 its spp rise.
 """
 
+import cpu_share  # noqa: F401  (first: this process's share of the CPU)
+
 import builtins
 import importlib.util
 import json

@@ -5,6 +5,8 @@ carries u32 words in int64 tensors, and must give the JAX package's bits
 for every key and counter.
 """
 
+import cpu_share  # noqa: F401  (first: this process's share of the CPU)
+
 import jax.numpy as jnp
 import numpy as np
 import pytest

@@ -21,6 +21,8 @@ here and in ``csrc/trace.cu`` built with ``MRT_RNG_HW`` on the card, where
 * the wrappers: the mode's name, its build flag and its build's counts.
 """
 
+import cpu_share  # noqa: F401  (first: this process's share of the CPU)
+
 import numpy as np
 import pytest
 import torch

@@ -15,6 +15,8 @@ in the main stream; past ``MAX_DEPTH`` bounces the page key is
   cornell depth 100 rr 3 at 24x16, jitted 1.0 bit for bit (853 = 853).
 """
 
+import cpu_share  # noqa: F401  (first: this process's share of the CPU)
+
 import numpy as np
 import pytest
 import torch

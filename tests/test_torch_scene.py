@@ -5,6 +5,8 @@ bit for bit (the sphere order decides equal-t ties, so the spatially sorted
 path must match too).
 """
 
+import cpu_share  # noqa: F401  (first: this process's share of the CPU)
+
 import dataclasses
 
 import numpy as np

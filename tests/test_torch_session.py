@@ -1,5 +1,7 @@
 """The PyTorch port's session, checkpoints, dispatch and CLI."""
 
+import cpu_share  # noqa: F401  (first: this process's share of the CPU)
+
 import os
 import pathlib
 import subprocess

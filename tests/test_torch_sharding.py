@@ -16,6 +16,8 @@ runs jitted on the 8 virtual CPU devices of ``tests/conftest.py``.
   contracts multiply-adds into FMAs; ROADMAP §3).
 """
 
+import cpu_share  # noqa: F401  (first: this process's share of the CPU)
+
 import jax
 import numpy as np
 import pytest

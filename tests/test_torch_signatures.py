@@ -11,6 +11,8 @@ integrator, ``config`` in the kernels' factories). Each exclusion is
 checked to be still needed, so the table cannot go stale.
 """
 
+import cpu_share  # noqa: F401  (first: this process's share of the CPU)
+
 import importlib
 import inspect
 import pkgutil

@@ -16,6 +16,8 @@ seeded discriminants: the same misses, and t within rtol 1e-6 (torch's and
 XLA's CPU ``rsqrt`` may differ by an ulp).
 """
 
+import cpu_share  # noqa: F401  (first: this process's share of the CPU)
+
 import ast
 import importlib.util
 import json

@@ -25,6 +25,8 @@ plain version is held against the JAX package:
   1.0 (0.977) / 0.953.
 """
 
+import cpu_share  # noqa: F401  (first: this process's share of the CPU)
+
 import contextlib
 import json
 

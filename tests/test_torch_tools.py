@@ -13,6 +13,8 @@ of the same renderer. The tools that need a card exit non-zero here and
 print nothing on stdout.
 """
 
+import cpu_share  # noqa: F401  (first: this process's share of the CPU)
+
 import importlib.util
 import json
 import math

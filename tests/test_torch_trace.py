@@ -28,6 +28,8 @@ segments, and differs from its own jitted golden exactly as the port does
 (0.9655): the divergence is the FMA contraction, not the port.
 """
 
+import cpu_share  # noqa: F401  (first: this process's share of the CPU)
+
 import pathlib
 
 import numpy as np

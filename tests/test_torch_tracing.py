@@ -6,6 +6,8 @@ counts of a session's per-frame path on the CPU.
 The card's side, that the counters see every sync a frame makes, is
 ``tests/test_torch_gpu.py::test_host_sync_counters_see_every_sync``."""
 
+import cpu_share  # noqa: F401  (first: this process's share of the CPU)
+
 import dataclasses
 import json
 

@@ -2,6 +2,8 @@
 package's: the same framebuffer serves the same bytes, the same queries get
 the same answers, and ``orbit_camera`` is the same float math."""
 
+import cpu_share  # noqa: F401  (first: this process's share of the CPU)
+
 import dataclasses
 import json
 import logging
