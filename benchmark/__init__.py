@@ -4,5 +4,7 @@
 ``BENCHMARK.json`` names them) and prints its result line; ``control.py``
 takes the readings the correctness limits are set from; ``tests/`` holds
 the CPU tests (``python -m pytest benchmark/tests``). Configurations,
-traffic mixes, limits and metric readers are files found by name.
+traffic mixes, limits and metric readers are files found by name; a
+configuration may name its own world module and reference package
+(``registry.py``).
 """

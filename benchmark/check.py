@@ -4,8 +4,10 @@ the segment count it reported, against the plain reference.
 
 The reference (``benchmark.reference``, a frozen copy of the program's
 plain integrator, sweep, gates, materials, lights, camera, RNG and scene
-compiler) works everything out again from the configuration file: the
-world, the compiled scene, the gates, the lights, the turntable's cameras.
+compiler, or the copy the cell's configuration names) works everything
+out again from the configuration file: the world and the views, built by
+the cell's world module with the reference's scene API, the compiled
+scene, the gates, the lights.
 It takes from the run only what the run asked of the program (which view,
 which sample window, how many frames) and, to judge them, the program's
 answers. For each picked answer it traces every sample of every frame
@@ -26,6 +28,17 @@ are over the samples it traced, the image's pixels only.
 
 ``Reference(..., dtype=torch.bfloat16)`` is the control: the same
 reference computed in the precision below the configuration's float32.
+
+A configuration names its world module and its reference package in its
+``"world"`` and ``"reference"`` keys (``registry.py``); without them the
+check builds with ``benchmark/world.py`` and ``benchmark.reference``. A
+reference copy holds every module this file uses
+(``registry.REFERENCE_MODULES``: ``adaptive``, ``api``, ``camera``,
+``compile``, ``gates``, ``hit``, ``integrator``, ``lights``, ``rng``,
+``vec``) with the same interfaces, and what they import, its own modules
+imported relatively, in plain torch and numpy, importing nothing of the
+program, of JAX or of the JAX package; it is frozen once a cell that uses
+it is accepted.
 """
 
 from __future__ import annotations
@@ -37,18 +50,7 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
-from benchmark import traffic as tr
-from benchmark import world as world_mod
-from benchmark.reference import adaptive as radaptive
-from benchmark.reference import api as rapi
-from benchmark.reference import camera as rcam
-from benchmark.reference import compile as rcompile
-from benchmark.reference import gates as rgates
-from benchmark.reference import hit as rhit
-from benchmark.reference import integrator as rint
-from benchmark.reference import lights as rlights
-from benchmark.reference import rng as rrng
-from benchmark.reference.vec import computing_in
+from benchmark import registry
 
 # The renderer's window (RenderConfig's defaults; shader.wgsl:340).
 T_MIN, T_MAX = 1e-3, 1e4
@@ -129,19 +131,25 @@ def blend(frames: np.ndarray, max_weight: float = 1.0) -> np.ndarray:
 
 
 class Reference:
-    """The plain reference of one cell, on ``device``, in ``dtype``."""
+    """The plain reference of one cell, on ``device``, in ``dtype``: the
+    reference package ``reference`` (``Cell.reference``; by default
+    ``benchmark.reference``), its world and views built by the world
+    module ``world`` (``Cell.world``; by default ``benchmark/world.py``)."""
 
-    def __init__(self, cfg: dict, traffic: dict, key_seed: int, device, dtype=torch.float32):
+    def __init__(self, cfg: dict, traffic: dict, key_seed: int, device, dtype=torch.float32,
+                 world=None, reference=None):
+        self.pkg = pkg = reference or registry.reference_package(registry.HERE.parent)
+        world = world or registry.world_module(registry.HERE.parent)
         self.width, self.height = int(cfg["width"]), int(cfg["height"])
         self.depth = int(cfg["max_depth"])
         self.device = torch.device(device)
         self.dtype = dtype
-        self.world = world_mod.build_world(cfg, rapi)
-        self.views = tr.views(cfg, traffic, rapi)
+        self.world = world.build_world(cfg, pkg.api)
+        self.views = world.views(cfg, traffic, pkg.api)
         sort = (len(self.world.spheres) > SPATIAL_SORT_MIN
                 or self.world.triangle_count > SPATIAL_SORT_MIN)
-        scene = rcompile.compile_scene(self.world, spatial_sort=sort, device=self.device)
-        self.tables = rgates.gate_tables(scene)
+        scene = pkg.compile.compile_scene(self.world, spatial_sort=sort, device=self.device)
+        self.tables = pkg.gates.gate_tables(scene)
         gates = self.tables.gates
         if dtype != torch.float32:
             scene = _cast_scene(scene, dtype)
@@ -149,13 +157,13 @@ class Reference:
                                       else getattr(gates, k).to(dtype)
                                       for k in ("aabb", "saabb", "traabb", "tsaabb")})
         self.scene, self.gates = scene, gates
-        self.lights = rlights.extract_lights(self.world) if cfg["nee"] else None
+        self.lights = pkg.lights.extract_lights(self.world) if cfg["nee"] else None
         self.sky = self.world.ambient
-        self.key = rrng.key_from_seed(key_seed)
+        self.key = pkg.rng.key_from_seed(key_seed)
 
     def camera(self, view: Optional[int]):
         cam = self.world.camera if view is None else self.views[view]
-        packed = rcam.pack_camera(cam, self.width, self.height)
+        packed = self.pkg.camera.pack_camera(cam, self.width, self.height)
         return torch.from_numpy(packed).to(self.device, self.dtype)
 
     def _frames(self, ans: Answer, ix: np.ndarray, iy: np.ndarray) -> tuple:
@@ -164,7 +172,8 @@ class Reference:
         n_pix = ix.shape[0]
         lanes = n_pix * ans.frames
         cam = self.camera(ans.view)
-        ray_gen = rint.ray_generator(rapi.Camera(), self.width, self.height, cam)
+        rint = self.pkg.integrator
+        ray_gen = rint.ray_generator(self.pkg.api.Camera(), self.width, self.height, cam)
         dev = self.device
         pix_x = torch.from_numpy(np.tile(ix, ans.frames)).to(dev)
         pix_y = torch.from_numpy(np.tile(iy, ans.frames)).to(dev)
@@ -199,7 +208,8 @@ class Reference:
         pix = np.repeat(np.arange(ix.shape[0]), windows)
         win = np.arange(pix.shape[0]) - np.repeat(np.cumsum(windows) - windows, windows)
         cam = self.camera(ans.view)
-        ray_gen = rint.ray_generator(rapi.Camera(), self.width, self.height, cam)
+        rint = self.pkg.integrator
+        ray_gen = rint.ray_generator(self.pkg.api.Camera(), self.width, self.height, cam)
         dev = self.device
         pix_x = torch.from_numpy(ix[pix]).to(dev)
         pix_y = torch.from_numpy(iy[pix]).to(dev)
@@ -218,7 +228,7 @@ class Reference:
             sums[torch.from_numpy(win[a:e]), torch.from_numpy(pix[a:e])] = \
                 acc.stacked(-1).float().cpu()
             segs += int(sg.sum())
-        values = radaptive.fold(sums, torch.from_numpy(windows), ans.spp).numpy()
+        values = self.pkg.adaptive.fold(sums, torch.from_numpy(windows), ans.spp).numpy()
         return values, segs, int(count.sum())
 
     def read(self, answers, ix: np.ndarray, iy: np.ndarray, count: bool = False) -> Reading:
@@ -226,8 +236,8 @@ class Reference:
         blends), its segments and samples; with ``count`` the sweep's
         tests too (``hit.count_tests``)."""
         values, segs, samples = [], 0, 0
-        counting = rhit.count_tests() if count else contextlib.nullcontext()
-        with counting as tests, computing_in(self.dtype), torch.no_grad():
+        counting = self.pkg.hit.count_tests() if count else contextlib.nullcontext()
+        with counting as tests, self.pkg.vec.computing_in(self.dtype), torch.no_grad():
             for ans in answers:
                 if ans.blocks is not None:
                     v, s, n = self._adaptive(ans, ix, iy)

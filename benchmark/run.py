@@ -7,14 +7,15 @@ It measures ``myraytracer_tpu_torch`` on one CUDA card through the CLI's
 own path: ``render.dispatch.make_session`` with a ``RenderConfig``, then
 ``RenderSession.set_camera``, ``step`` and ``fetch_framebuffer`` read to
 host memory, as the cell's traffic mix (``benchmark/traffic/``) asks.
-Set-up builds the world from the configuration file, the session, the
-kernel's library (cached under ``build/kernels/`` in the checkout, so
-only a checkout's first run compiles) and one warm step of the cell's own
-shape; ``setup_s`` runs from the process's start to the first timed
-dispatch. The window then runs whole steps until ``--seconds`` have
-passed, and closes when the last framebuffer begun before then is in
-host memory. After it closes, the program's state is freed and the plain
-reference (``benchmark/check.py``) judges the answers it picked.
+Set-up builds the world from the configuration file (through the cell's
+world module, ``registry.py``), the session, the kernel's library (cached
+under ``build/kernels/`` in the checkout, so only a checkout's first run
+compiles) and one warm step of the cell's own shape; ``setup_s`` runs
+from the process's start to the first timed dispatch. The window then
+runs whole steps until ``--seconds`` have passed, and closes when the
+last framebuffer begun before then is in host memory. After it closes,
+the program's state is freed and the plain reference
+(``benchmark/check.py``) judges the answers it picked.
 
 A traffic mix with ``"session": "adaptive"`` takes the path of the CLI's
 ``--adaptive`` instead: ``render.adaptive.AdaptiveSession`` with the
@@ -27,7 +28,10 @@ With ``--trace 0`` the result holds the cell's end-to-end metrics; with
 ``--trace 1`` its per-layer metrics, from a ``torch.profiler`` slice of
 the window (trace written to ``build/bench/``), the benchmark's own spans
 and the program's counters, and a ``breakdown``. Every metric is read by
-``benchmark/metrics/<name>.py``.
+``benchmark/metrics/<name>.py``; a traced run's readers also get the cell
+reference's counts on the checked pixels (``tests``, the whole dict
+``hit.count_tests`` returns, and ``reference_segments``), so a reader
+added with a configuration can count a kind of test of its own.
 
 Exits non-zero and prints no result when there is no CUDA card (or fewer
 than the cell asks for), when the program cannot be imported, or when a
@@ -58,7 +62,6 @@ from benchmark import check as chk  # noqa: E402
 from benchmark import profiling  # noqa: E402
 from benchmark import registry  # noqa: E402
 from benchmark import traffic as tr  # noqa: E402
-from benchmark import world as world_mod  # noqa: E402
 
 # Top-level module names that must not be loaded where the result is printed.
 FORBIDDEN = ("jax", "jaxlib", "flax", "myraytracer_tpu")
@@ -328,8 +331,8 @@ def run_cell(cell: registry.Cell, seed: int, seconds: float, trace: bool, progra
     place, under ``control_checks``."""
     cfg, traffic = cell.config, cell.traffic
     width, height, depth = int(cfg["width"]), int(cfg["height"]), int(cfg["max_depth"])
-    world = world_mod.build_world(cfg, program.api)
-    views = tr.views(cfg, traffic, program.api)
+    world = cell.world.build_world(cfg, program.api)
+    views = cell.world.views(cfg, traffic, program.api)
     adaptive = tr.adaptive(traffic)
     if adaptive:
         # The CLI's --adaptive --spp S --frames N (cli.py:_run_adaptive).
@@ -433,7 +436,7 @@ def run_cell(cell: registry.Cell, seed: int, seconds: float, trace: bool, progra
     # The check, after the window and with the program's state freed.
     t_ref = time.perf_counter()
     ix, iy = tr.check_pixels(seed, width, height, traffic["check"]["pixels"])
-    ref = chk.Reference(cfg, traffic, seed, device)
+    ref = chk.Reference(cfg, traffic, seed, device, world=cell.world, reference=cell.reference)
     reading = ref.read(answers, ix, iy, count=trace)
     nums = chk.numbers(answers, reading, ix, iy, width, height)
     checks = chk.verdict(nums, cell.limits)
@@ -442,7 +445,8 @@ def run_cell(cell: registry.Cell, seed: int, seconds: float, trace: bool, progra
     reference_s = time.perf_counter() - t_ref
     control_checks = None
     if control:
-        low = chk.Reference(cfg, traffic, seed, device, dtype=torch.bfloat16)
+        low = chk.Reference(cfg, traffic, seed, device, dtype=torch.bfloat16, world=cell.world,
+                            reference=cell.reference)
         control_checks = chk.verdict(chk.control_numbers(low.read(answers, ix, iy), reading,
                                                          answers), cell.limits)
 
@@ -464,6 +468,7 @@ def run_cell(cell: registry.Cell, seed: int, seconds: float, trace: bool, progra
             cell=cell.name, window=window, width=width, height=height, device_name=device_name,
             spans=_spans_outside(spans.rows, pieces), slice=dev,
             slice_counts=counts if dev is not None else None,
+            tests=tests, reference_segments=reading.segments,
             tests_per_segment=({k: tests[k] / reading.segments for k in ("sphere", "triangle")}
                                if tests else None),
             table_bytes=ref.tables.table_bytes, adaptive=launch_shape)

@@ -1,0 +1,1 @@
+"""A stand-in module of a package the registry refuses."""

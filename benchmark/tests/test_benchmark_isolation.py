@@ -2,13 +2,30 @@
 the program, and nothing anywhere JAX or the JAX package."""
 
 import ast
+import json
 import pathlib
 
 import pytest
 
+from benchmark.registry import REFERENCE_MODULES
 from conftest import ROOT
 
 BENCH = ROOT / "benchmark"
+
+
+def _plugins() -> list:
+    """The world modules and the reference packages' modules, relative to
+    ``benchmark/``: the defaults, and those that the configurations under
+    ``benchmark/`` (the cells' and the tests') name."""
+    starts = {"world.py"} | {f"reference/{m}.py" for m in REFERENCE_MODULES}
+    for path in sorted(BENCH.glob("configs/*.json")) + sorted(BENCH.glob("tests/data/*.json")):
+        cfg = json.loads(path.read_text())
+        if "world" in cfg:
+            starts.add(str(pathlib.PurePosixPath(cfg["world"]).relative_to("benchmark")))
+        if "reference" in cfg:
+            pkg = pathlib.PurePosixPath(cfg["reference"]).relative_to("benchmark")
+            starts |= {f"{pkg}/{m}.py" for m in REFERENCE_MODULES}
+    return sorted(starts)
 
 
 def _imports(path: pathlib.Path) -> set:
@@ -33,7 +50,7 @@ def _local_closure(start: pathlib.Path) -> set:
         tree = ast.parse(path.read_text())
         for node in ast.walk(tree):
             if isinstance(node, ast.ImportFrom):
-                if node.level:  # relative, inside benchmark/reference
+                if node.level:  # relative, inside a reference package
                     base = path.parent
                     mods = [node.module] if node.module else [a.name for a in node.names]
                     for m in mods:
@@ -46,8 +63,12 @@ def _local_closure(start: pathlib.Path) -> set:
     return seen
 
 
-@pytest.mark.parametrize("start", ["check.py", "reference/integrator.py", "world.py",
-                                   "traffic.py", "roofline.py"])
+def test_the_test_configurations_world_module_is_covered():
+    assert "tests/data/textured_world.py" in _plugins()
+
+
+@pytest.mark.parametrize("start", ["check.py", "registry.py", "traffic.py", "roofline.py",
+                                   *_plugins()])
 def test_reference_imports_nothing_of_the_program(start):
     for path in _local_closure(BENCH / start):
         tops = {n.split(".")[0] for n in _imports(path)}

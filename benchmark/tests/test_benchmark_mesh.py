@@ -10,7 +10,7 @@ import json
 import numpy as np
 import pytest
 
-from benchmark import check, run, traffic, world
+from benchmark import check, registry, run, traffic, world
 from benchmark.reference import api as rapi
 from conftest import ROOT, SEED, run_tiny_mesh, tiny_mesh
 from myraytracer_tpu_torch.scene import api as papi
@@ -69,18 +69,30 @@ def _digest(w) -> str:
     return h.hexdigest()
 
 
-# The worlds of the configurations that came before the icospheres key,
-# as the harness built them then.
+# The worlds of the configurations, as the harness built them before a
+# configuration could name its own world module: the first two before the
+# icospheres key, baseline_mesh5 when it came.
 DIGESTS = {
     "rtiow_final": "452093a4251eea5d639d5077d8212a132f3803bd3392352c087c0dfbae190a05",
     "rttnw_cornell": "49116a978f4c3a0910da1cec443533ab113dee9bd0127bbc2182c43a300b8f5d",
+    "baseline_mesh5": "0499a270f4f99dcdce2b8c078a25bbb0ce4d3d410b41612f15ef78394196e926",
 }
 
 
-@pytest.mark.parametrize("api", [papi, rapi], ids=["program", "reference"])
+def _copy_api():
+    return registry.reference_package(ROOT, "benchmark/reference").api
+
+
+@pytest.mark.parametrize("api", [lambda: papi, lambda: rapi, _copy_api],
+                         ids=["program", "reference", "reference-by-path"])
 @pytest.mark.parametrize("name", sorted(DIGESTS))
-def test_other_worlds_are_unchanged(name, api):
-    assert _digest(world.build_world(_config(name), api)) == DIGESTS[name]
+def test_other_worlds_are_unchanged(reg, name, api):
+    """Each configuration's world, built by the world module its cell
+    resolves to, with the program's API, the reference's and a copy of the
+    reference's loaded by path."""
+    cell = next(w["name"] for w in reg.bench["workloads"] if w["config"] == name)
+    built = reg.cell(cell).world.build_world(_config(name), api())
+    assert _digest(built) == DIGESTS[name]
 
 
 def test_result_line(reg, program):

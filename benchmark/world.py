@@ -1,9 +1,18 @@
-"""A configuration file's world, built with a given scene API.
+"""A configuration file's world, built with a given scene API: the world
+module of every configuration that names none of its own.
 
 The same file builds the world twice: with the program's scene API
 (``myraytracer_tpu_torch.scene.api``, passed in by ``run.py``) for the
-system under test, and with the reference's frozen copy
-(``benchmark.reference.api``) for the check. This module imports neither.
+system under test, and with the cell's reference's copy (the ``api`` of
+``benchmark.reference`` or of the package the configuration names) for
+the check. This module imports neither.
+
+A world module defines ``build_world(cfg, api)`` and ``views(cfg,
+traffic, api)``; this one's views are the general generator's turntable
+(``traffic.views``). A configuration that needs what this module lacks
+names a module of its own under ``benchmark/`` in its ``"world"`` key
+(``registry.py``), which may build on this one's helpers; like this file,
+it is frozen once a cell that uses it is accepted.
 
 A configuration's ``scene`` holds any of: ``sphere_field`` (the RTiOW final
 scene's generator, copied from ``myraytracer_tpu_torch/scene/presets.py:
@@ -21,6 +30,7 @@ import math
 import numpy as np
 
 from benchmark.reference import meshgen
+from benchmark.traffic import views  # noqa: F401  (this world module's views)
 
 
 def _material(spec, api, named: dict):
